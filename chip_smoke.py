@@ -3,28 +3,36 @@
 
     python3 chip_smoke.py
 
-Builds the readout kernel from ``wayne_tpu_torch/csrc/readout.cu`` (nvcc,
-sm_90a) and then:
+Builds the readout kernels from ``wayne_tpu_torch/csrc`` (nvcc, sm_90a, one
+process per source, in parallel, linked into one library) and then:
 
-1. holds the kernel against its plain PyTorch version on the card at both
-   shapes the main path launches it at: a chunk of the visit (S = 512, 16
-   reads, the auto band, the config's MAX_CR, 8 exposures) and the direct
-   image (1 exposure, direct_image_nsamp + 1 reads, the full-frame window
-   W = S, on the inputs the main path gives it): noise off with IPC off
-   and on (rtol 1e-5); noise on with the same Philox draws (>= 99.9 % of
-   pixels identical, the rest within a few electrons; a second run
-   bit-identical); then the Poisson regimes' moments and the read-noise
-   sigma;
+1. holds the whole-exposure kernel against its plain PyTorch version on
+   the card at both shapes the main path launches it at: a chunk of the
+   visit (S = 512, 16 reads, the auto band, the config's MAX_CR, 8
+   exposures) and the direct image (1 exposure, direct_image_nsamp + 1
+   reads, the full-frame window W = S, on the inputs the main path gives
+   it): noise off with IPC off and on (rtol 1e-5); noise on with the same
+   Philox draws (>= 99.9 % of pixels identical, the rest within a few
+   electrons; a second run bit-identical); then the Poisson regimes'
+   moments and the read-noise sigma;
 2. drives the main path at full width: ``examples/wasp43b_g141_scan.yml``
    (512^2, NSAMP 15, n_lambda 512, the default noise chain), cut to one
    orbit: ``Observation.simulate()`` and ``Observation.generate()`` for
    the direct image and the first chunk, read back with ``read_ima``. The
    readout's launch counter, zeroed just before, shows the path went
    through the kernel;
-3. times the kernel, its plain version and ``simulate()``.
+3. holds the per-read kernels against their plain versions, read by read
+   over the chunk's 16 reads: the banded step at W = 32 and the full-frame
+   step at W = S, with the bars of phase 1;
+4. drives the per-read path (``fused_reads=False``) of the same visit:
+   ``simulate()`` through the banded step (16 launches per chunk, none of
+   the whole-exposure kernel), its reads against the whole-exposure
+   route's, then one chunk with ``band_px: 0`` through the full-frame step
+   (16 launches);
+5. times each kernel, its plain version and ``simulate()`` on both routes.
 
 Prints the card's name and power limit first, a JSON line with the
-kernel's numbers before the last line, and last
+kernels' numbers before the last line, and last
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. It
 needs a CUDA card and the repository around it, and fails without either.
 """
@@ -52,6 +60,9 @@ BOX_MULLER_OPS = 10         # log, sqrt, sin, cos + 6 arithmetic
 SAMPLER_OPS = 10            # Cornish-Fisher round(lam + sqrt(lam) z + skew)
 SMALL_LAM_OPS = 40          # exp + 12 x (add, compare, add, 2 multiplies)
 READOUT_OPS = 16            # accumulate, nonlin, bias, noise, gain, store
+# the default noise chain's readout flags (IPC off)
+NOISE_ON = dict(poisson=True, read_noise=True, non_linearity=True, bias=True,
+                scalar_gain=False, with_cr=True, bg_poisson=True, ipc=False)
 
 
 class SmokeFailure(RuntimeError):
@@ -91,11 +102,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # Phase 1: the kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def readout_inputs(B, NR, W, S, n_cr, read_times, seed=0):
+def readout_inputs(B, NR, W, S, n_cr, read_times, seed=0, dev="cuda"):
     """Headline-shaped readout inputs made on the card from a seed."""
     import torch
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
     u = lambda *shape: torch.rand(shape, generator=g, device=dev)
     dts = torch.diff(torch.as_tensor(read_times, dtype=torch.float32,
                                      device=dev), prepend=torch.zeros(
@@ -126,48 +136,76 @@ def readout_inputs(B, NR, W, S, n_cr, read_times, seed=0):
             tabs["inv_gain"], tabs["nl"], cr_pos, cr_q, consts)
 
 
-def bound_of(args, flags) -> tuple[float, str, float, float]:
-    """Least time for the readout on these inputs: bytes each input and
-    output moves once, and the operations this run's data needs."""
-    import torch
-    seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q, _ = args
-    B, NR, W, S = bands.shape
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (seed, y0s, dts, bands, bg, bias, inv_gain, nl,
-                           cr_pos, cr_q))
-    nbytes += (B * NR * S * S + B * S * S) * 4          # reads + cum out
-    px_reads = B * NR * S * S
-    ops = READOUT_OPS * px_reads + int((cr_q != 0).sum())   # + CR deposits
-    n_normal = px_reads if flags["read_noise"] else 0
-    if flags["poisson"]:
-        # what these inputs need: a normal where lambda >= 3, a uniform and
-        # the exact sum where 0 < lambda < 3, nothing where lambda = 0
-        lam = bg[:, None] * dts[:, :, None, None]
-        gauss = int((lam >= 3).sum())
-        small = int(((lam > 0) & (lam < 3)).sum())
-        if not flags["read_noise"]:
-            n_normal = gauss
-        ops += SAMPLER_OPS * gauss + (PHILOX_OPS + SMALL_LAM_OPS) * small
-        gauss = int((bands >= 3).sum())
-        small = int(((bands > 0) & (bands < 3)).sum())
-        ops += (PHILOX_OPS + BOX_MULLER_OPS + SAMPLER_OPS) * gauss
-        ops += (PHILOX_OPS + SMALL_LAM_OPS) * small
-    ops += (PHILOX_OPS + BOX_MULLER_OPS) * n_normal
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(nbytes: int, ops: int) -> tuple[float, str, float, float]:
     t_bytes = nbytes / H100_BYTES_S * 1e3
     t_ops = ops / H100_FP32_OPS_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations"), t_bytes, t_ops
 
 
+def _read_ops(lam, px_reads: int, cr_q, flags) -> int:
+    """Operations of the background sampler, the normals and the readout
+    chain that ``px_reads`` pixel-reads with background ``lam`` need."""
+    ops = READOUT_OPS * px_reads
+    if cr_q is not None:
+        ops += int((cr_q != 0).sum())                       # CR deposits
+    n_normal = px_reads if flags["read_noise"] else 0
+    if flags["poisson"]:
+        # what these inputs need: a normal where lambda >= 3, a uniform and
+        # the exact sum where 0 < lambda < 3, nothing where lambda = 0
+        gauss = int((lam >= 3).sum())
+        small = int(((lam > 0) & (lam < 3)).sum())
+        if not flags["read_noise"]:
+            n_normal = gauss
+        ops += SAMPLER_OPS * gauss + (PHILOX_OPS + SMALL_LAM_OPS) * small
+    return ops + (PHILOX_OPS + BOX_MULLER_OPS) * n_normal
+
+
+def bound_of(args, flags) -> tuple[float, str, float, float]:
+    """Least time for the whole-exposure readout on these inputs: bytes
+    each input and output moves once, and the operations this run's data
+    needs."""
+    seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q, _ = args
+    B, NR, W, S = bands.shape
+    nbytes = _nbytes(seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos,
+                     cr_q) + (B * NR * S * S + B * S * S) * 4  # reads + cum
+    ops = _read_ops(bg[:, None] * dts[:, :, None, None], B * NR * S * S,
+                    cr_q, flags)
+    if flags["poisson"]:                    # the band, sampled in-kernel
+        gauss = int((bands >= 3).sum())
+        small = int(((bands > 0) & (bands < 3)).sum())
+        ops += (PHILOX_OPS + BOX_MULLER_OPS + SAMPLER_OPS) * gauss
+        ops += (PHILOX_OPS + SMALL_LAM_OPS) * small
+    return _bound(nbytes, ops)
+
+
+def step_bound_of(kw, flags) -> tuple[float, str, float, float]:
+    """Least time for one per-read step on its keyword arguments ``kw``
+    (the band or add frame comes sampled: no sampling of it is counted)."""
+    import torch
+    tensors = [v for v in kw.values() if isinstance(v, torch.Tensor)]
+    B, S, _ = kw["cum"].shape
+    nbytes = _nbytes(*tensors) + 2 * B * S * S * 4          # cum out + dn
+    return _bound(nbytes, _read_ops(kw["bg_rate"] * kw["dt"][:, None, None],
+                                    B * S * S, kw.get("cr_q"), flags))
+
+
 def direct_image_inputs(obs) -> tuple[tuple, dict]:
     """The readout's arguments and flags exactly as the main path gives
     them for the direct image (B = 1, NR = direct_image_nsamp + 1, W = S),
-    recorded from one ``Observation.simulate_direct_image()``."""
+    recorded from one ``Observation.simulate_direct_image()``: (the eleven
+    array and scalar arguments in order, the keyword flags)."""
+    import inspect
+
     import wayne_tpu_torch.ops.exposure as ex
     real, seen = ex.exposure_readout, []
 
     def record(*args, **kw):
-        seen.append((args, kw))
+        seen.append(inspect.signature(real).bind(*args, **kw).arguments)
         return real(*args, **kw)
 
     ex.exposure_readout = record
@@ -175,34 +213,40 @@ def direct_image_inputs(obs) -> tuple[tuple, dict]:
         obs.simulate_direct_image()
     finally:
         ex.exposure_readout = real
-    (args, kw), = seen
-    return args, kw
+    call, = seen
+    names = [p.name for p in inspect.signature(real).parameters.values()
+             if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    return (tuple(call[n] for n in names),
+            {k: v for k, v in call.items() if k not in names})
 
 
-def hold_against_plain(ro, args, on: dict, label: str) -> list[float]:
-    """Kernel against plain version on the same inputs: noise off with IPC
-    off and on to rtol 1e-5, then ``on`` (noise on, the same Philox
+def hold_against_plain(kernel, plain, on: dict, gain: float, label: str,
+                       variants=({"ipc": False}, {"ipc": True})
+                       ) -> list[float]:
+    """Kernel against plain version on the same inputs: ``kernel(flags)``
+    and ``plain(flags)`` return (reads, cum). Noise off with each of
+    ``variants`` to rtol 1e-5, then ``on`` (noise on, the same Philox
     draws). Returns the max abs errors (DN)."""
     import torch
     errs = []
-    for ipc in (False, True):
-        off = dict(on, poisson=False, read_noise=False, ipc=ipc)
-        got, cum = ro.exposure_readout(*args, **off)
-        want, cum_w = ro.exposure_readout_plain(*args, **off)
+    for extra in variants:
+        off = dict(on, poisson=False, read_noise=False, **extra)
+        got, cum = kernel(off)
+        want, cum_w = plain(off)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
         errs.append(err)
         check(rel <= 1e-5 and torch.allclose(cum, cum_w, rtol=1e-5, atol=0),
-              f"{label}, noise off, ipc={ipc}: max abs err {err:.3g} DN, "
+              f"{label}, noise off {extra}: max abs err {err:.3g} DN, "
               f"max rel err {rel:.3g} <= 1e-5")
-    got, _ = ro.exposure_readout(*args, **on)
-    want, _ = ro.exposure_readout_plain(*args, **on)
-    again, _ = ro.exposure_readout(*args, **on)
+    got, _ = kernel(on)
+    want, _ = plain(on)
+    again, _ = kernel(on)
     torch.cuda.synchronize()
     same = float((got == want).float().mean())
     errs.append(float((got - want).abs().max()))
-    worst_e = errs[-1] * float(args[10][2])         # DN x nominal gain
+    worst_e = errs[-1] * gain                       # DN x nominal gain
     check(same >= 0.999, f"{label}, noise on: {same * 100:.4f}% of pixels "
           "identical to the plain version (>= 99.9%)")
     check(worst_e <= 5.0, f"{label}, noise on: the rest within "
@@ -212,7 +256,7 @@ def hold_against_plain(ro, args, on: dict, label: str) -> list[float]:
     return errs
 
 
-def phase_kernel(cfg, obs, card: str) -> dict:
+def phase_kernel(cfg, obs, card: str) -> tuple[dict, tuple]:
     from wayne_tpu_torch.calibration import sample_sequence_times
     from wayne_tpu_torch.ops import readout as ro
 
@@ -223,27 +267,31 @@ def phase_kernel(cfg, obs, card: str) -> dict:
     args = readout_inputs(B, NR, W, S, n_cr, times)
     print(f"phase 1: kernel vs plain, chunk B={B} NR={NR} S={S} W={W} "
           f"MAX_CR={n_cr}")
-    on = dict(poisson=True, read_noise=True, non_linearity=True, bias=True,
-              scalar_gain=False, with_cr=True, bg_poisson=True, ipc=False)
-    errs = hold_against_plain(ro, args, on, "chunk")
+    errs = hold_against_plain(
+        lambda f: ro.exposure_readout(*args, **f),
+        lambda f: ro.exposure_readout_plain(*args, **f), NOISE_ON,
+        args[10][2], "chunk")
     di_args, di_flags = direct_image_inputs(obs)
     print("phase 1: kernel vs plain, direct image "
           f"(B, NR, W, S) = {tuple(di_args[3].shape)}, the main path's "
           f"inputs and flags {di_flags}")
-    errs += hold_against_plain(ro, di_args, di_flags, "direct image")
+    errs += hold_against_plain(
+        lambda f: ro.exposure_readout(*di_args, **f),
+        lambda f: ro.exposure_readout_plain(*di_args, **f), di_flags,
+        di_args[10][2], "direct image")
     moments(ro, S, W, B)
 
     # timings at the chunk's shapes with the noise on
-    ms = cuda_ms(lambda: ro.exposure_readout(*args, **on), reps=20)
-    plain_ms = cuda_ms(lambda: ro.exposure_readout_plain(*args, **on),
+    ms = cuda_ms(lambda: ro.exposure_readout(*args, **NOISE_ON), reps=20)
+    plain_ms = cuda_ms(lambda: ro.exposure_readout_plain(*args, **NOISE_ON),
                        reps=2, warmup=1)
-    bound_ms, bound_by, t_bytes, t_ops = bound_of(args, on)
+    bound_ms, bound_by, t_bytes, t_ops = bound_of(args, NOISE_ON)
     print(f"timing [{card}]: readout kernel {ms:.4f} ms/launch "
           f"({ms / B:.4f} ms/exposure, B={B}), plain version "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
           f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
     return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by), args
 
 
 def moments(ro, S, W, B) -> None:
@@ -383,6 +431,181 @@ def phase_main_path(cfg, obs, card: str) -> tuple[int, float]:
     return launches, n / wall
 
 
+# ---------------------------------------------------------------------------
+# Phase 3: the per-read kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def step_args(args, k: int, cum, full_frame: bool, poisson: bool) -> dict:
+    """A per-read step's arguments for read k of the phase-1 chunk inputs,
+    built as the per-read path builds them: the banded step takes the band
+    at its row (sampled when ``poisson``); the full-frame step takes the
+    band placed in a zero frame and sampled, plus the read's hits in list
+    order."""
+    import torch
+
+    from wayne_tpu_torch.ops.readout import add_hits, sample_band
+
+    seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q, consts = args
+    B, _, W, S = bands.shape
+    kw = dict(seed=seed, read=k, dt=dts[:, k].contiguous(), cum=cum,
+              bg_rate=bg, bias_map=bias, inv_gain=inv_gain, nl_coeffs=nl,
+              consts=consts)
+    y0, band = y0s[:, k].contiguous(), bands[:, k]
+    if not full_frame:
+        if poisson:
+            band = sample_band(seed, k, y0, band)
+        return dict(kw, y0=y0, band=band.contiguous(),
+                    cr_pos=cr_pos[:, k].contiguous(),
+                    cr_q=cr_q[:, k].contiguous())
+    rows = y0.long()[:, None] + torch.arange(W, device=y0.device)
+    frame = torch.zeros_like(cum).scatter(
+        1, rows[:, :, None].expand(B, W, S), band)
+    if poisson:
+        frame = sample_band(seed, k, torch.zeros_like(y0), frame)
+    return dict(kw, add=add_hits(frame, cr_pos[:, k], cr_q[:, k]))
+
+
+def step_reads(step, plain, args, full_frame: bool, flags: dict):
+    """The chunk's reads through the per-read kernel ``step``, one launch
+    per read from zero charge; with ``plain``, each read's outputs come
+    from the plain version instead, on the kernel's charge and the same
+    inputs. Returns (dn, cum after each read), (B, NR, S, S) each."""
+    import torch
+    B, NR, _, S = args[3].shape
+    cum = torch.zeros((B, S, S), device=args[3].device)
+    dns, cums = [], []
+    for k in range(NR):
+        kw = step_args(args, k, cum, full_frame, flags["poisson"])
+        cum, dn = step(**kw, **flags)
+        if plain is None:
+            cums.append(cum)
+        else:
+            cum_p, dn = plain(**kw, **flags)
+            cums.append(cum_p)
+        dns.append(dn)
+    return torch.stack(dns, 1), torch.stack(cums, 1)
+
+
+def phase_steps(args, card: str) -> dict:
+    from wayne_tpu_torch.ops import readout as ro
+
+    B, NR, W, S = args[3].shape
+    step_on = {k: v for k, v in NOISE_ON.items()
+               if k not in ("with_cr", "ipc")}
+    out = {}
+    for name, step, plain, full_frame, on, variants in (
+            ("read_step_banded", ro.read_step_banded,
+             ro.read_step_banded_plain, False, NOISE_ON,
+             ({"ipc": False}, {"ipc": True})),
+            ("read_step", ro.read_step, ro.read_step_plain, True, step_on,
+             ({},))):
+        print(f"phase 3: {name} vs plain, chunk B={B}, {NR} reads, S={S}, "
+              f"W={S if full_frame else W}")
+        errs = hold_against_plain(
+            lambda f: step_reads(step, None, args, full_frame, f),
+            lambda f: step_reads(step, plain, args, full_frame, f),
+            on, args[10][2], name, variants)
+        # one launch in the middle of the ramp, noise on
+        k = NR // 2
+        _, cums = step_reads(step, None, args, full_frame, on)
+        kw = step_args(args, k, cums[:, k - 1].contiguous(), full_frame, True)
+        ms = cuda_ms(lambda: step(**kw, **on), reps=50)
+        plain_ms = cuda_ms(lambda: plain(**kw, **on), reps=2, warmup=1)
+        bound_ms, bound_by, t_bytes, t_ops = step_bound_of(kw, on)
+        print(f"timing [{card}]: {name} kernel {ms:.4f} ms/launch (B={B}, "
+              f"read {k}), plain version {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} (bytes {t_bytes:.4f} ms, "
+              f"operations {t_ops:.4f} ms)")
+        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the per-read path at full width
+# ---------------------------------------------------------------------------
+
+def phase_per_read(cfg, obs, card: str) -> dict:
+    import dataclasses
+
+    import torch
+
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+
+    kernels = (ro.exposure_readout, ro.read_step_banded, ro.read_step)
+    nr = cfg.nsamp + 1
+
+    def drive(o):
+        """simulate() with every launch count zeroed just before and read
+        just after."""
+        for f in kernels:
+            f.launches = 0
+        t0 = time.time()
+        res = o.simulate(chunk=CHUNK)
+        torch.cuda.synchronize()
+        return res.reads_dn, time.time() - t0, [f.launches for f in kernels]
+
+    def ramp_ok(reads, n, label):
+        S = cfg.subarray
+        check(tuple(reads.shape) == (n, nr, S, S)
+              and bool(torch.isfinite(reads).all()),
+              f"{label}: reads_dn {tuple(reads.shape)} finite")
+        ramp = reads.double().sum(dim=(-2, -1))
+        check(bool((torch.diff(ramp, dim=1) > 0).all()),
+              f"{label}: every exposure's frame-sum ramp is monotone")
+
+    def same_as_fused(o, reads, label):
+        static = o.static
+        o.static = dataclasses.replace(static, fused_reads=True)
+        try:
+            fused = o.simulate(chunk=CHUNK).reads_dn
+        finally:
+            o.static = static
+        same = float((reads == fused).float().mean())
+        check(same >= 0.999, f"{label}: {same * 100:.4f}% of pixels "
+              "identical to the whole-exposure route's (>= 99.9%)")
+
+    print("phase 4: the per-read path (fused_reads=False)")
+    n = obs.plan.n_exposures
+    n_chunks = math.ceil(n / CHUNK)
+    fused_static = obs.static
+    obs.static = dataclasses.replace(fused_static, fused_reads=False)
+    try:
+        reads, t_first, (b1, b2, b3) = drive(obs)
+        ramp_ok(reads, n, "simulate(), per-read")
+        check(b2 == nr * n_chunks and b1 == 0 and b3 == 0,
+              f"simulate(), per-read: {b2} banded-step launches == {nr} "
+              f"reads x {n_chunks} chunks; {b1} whole-exposure and {b3} "
+              "full-frame launches")
+        banded_launches = b2
+        _, wall, _ = drive(obs)
+        same_as_fused(obs, reads, "simulate(), per-read")
+    finally:
+        obs.static = fused_static
+    del reads
+
+    one = Observation(dataclasses.replace(cfg, exposures_per_orbit=CHUNK,
+                                          band_px=0))
+    one.static = dataclasses.replace(one.static, fused_reads=False)
+    check(one.static.band_px == 0 and not one.static.noise.ipc,
+          "one chunk with band_px: 0 and IPC off (the full-frame route)")
+    reads0, t0_first, (b1, b2, b3) = drive(one)
+    ramp_ok(reads0, one.plan.n_exposures, "band off, per-read")
+    check(b3 == nr and b1 == 0 and b2 == 0,
+          f"band off, per-read: {b3} full-frame-step launches == {nr} "
+          f"reads x 1 chunk; {b1} whole-exposure and {b2} banded-step "
+          "launches")
+    _, wall0, _ = drive(one)
+    same_as_fused(one, reads0, "band off, per-read")
+    print(f"timing [{card}]: simulate() per-read {n} exposures in "
+          f"{wall:.3f} s = {n / wall:.2f} exposures/s (first call "
+          f"{t_first:.3f} s); band off, per-read {one.plan.n_exposures} "
+          f"exposures in {wall0:.3f} s = {one.plan.n_exposures / wall0:.2f} "
+          f"exposures/s (first call {t0_first:.3f} s)")
+    return dict(read_step_banded=banded_launches, read_step=b3)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "wayne_tpu_torch")):
         print("chip_smoke.py: the wayne_tpu_torch package is not beside "
@@ -407,18 +630,26 @@ def main() -> int:
     print(f"built {os.path.relpath(ro.library_path(), HERE)} in "
           f"{time.time() - t0:.1f} s")
     cfg, obs = headline_observation()
-    k = phase_kernel(cfg, obs, card)
+    whole, args = phase_kernel(cfg, obs, card)
     launches, _ = phase_main_path(cfg, obs, card)
+    steps = phase_steps(args, card)
+    del args
+    per_read = phase_per_read(cfg, obs, card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")
+    rows = [("exposure_readout", "readout.cu", 416, launches, whole)]
+    rows += [(name, "read_step.cu", line, per_read[name], steps[name])
+             for name, line in (("read_step_banded", 598),
+                                ("read_step", 546))]
     print(json.dumps({"kernels": [{
-        "name": "exposure_readout", "route": "cuda",
-        "source": "wayne_tpu_torch/csrc/readout.cu",
-        "replaces": "wayne_tpu/ops/pallas_readout.py:416",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-        "bound_by": k["bound_by"], "library_ms": None}]}))
+        "name": name, "route": "cuda",
+        "source": f"wayne_tpu_torch/csrc/{src}",
+        "replaces": f"wayne_tpu/ops/pallas_readout.py:{line}",
+        "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+        "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}
+        for name, src, line, n, k in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,6 +8,7 @@ JAX is not installed (the repo's conftest imports JAX, hence
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -17,7 +18,10 @@ import torch
 from wayne_tpu_torch.config import config_from_dict
 from wayne_tpu_torch.io.ima import read_ima
 from wayne_tpu_torch.observation import Observation
-from wayne_tpu_torch.ops.readout import exposure_readout, exposure_readout_plain
+from wayne_tpu_torch.ops.readout import (
+    exposure_readout, exposure_readout_plain, read_step, read_step_banded,
+    read_step_banded_plain, read_step_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -84,6 +88,109 @@ def test_kernel_rejects_bad_inputs(card):
     args[1] = args[1].to(torch.int64)                        # y0s dtype
     with pytest.raises(TypeError, match="y0s"):
         exposure_readout(*args)
+
+
+def _step_inputs(dev, B=3, W=32, S=128, n_cr=6):
+    """One read's inputs: charge, a sampled band at unaligned rows, the
+    full-frame add, hits (two on one pixel) and the shared planes."""
+    g = torch.Generator().manual_seed(4)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    cr_pos = torch.randint(0, S, (B, 2, n_cr), generator=g,
+                           dtype=torch.int32)
+    cr_pos[:, :, 1] = cr_pos[:, :, 0]
+    cr_q = 1000.0 * r(B, n_cr)
+    cr_q[:, -1] = 0.0
+    bg = 3.0 * r(B, S, S)
+    bg[:, :, :4] = 0.0
+    t = dict(seed=torch.tensor([[3, 7], [-1, 9], [5, -5]],
+                               dtype=torch.int32)[:B],
+             y0=torch.tensor([0, 41, 93], dtype=torch.int32)[:B],
+             dt=torch.tensor([0.0, 2.9, 5.0])[:B], cum=7e4 * r(B, S, S),
+             band=torch.round(800.0 * r(B, W, S)), add=800.0 * r(B, S, S),
+             bg_rate=bg, bias_map=1000.0 + r(S, S),
+             inv_gain=1.0 / (2.5 + 0.02 * r(S, S)),
+             nl_coeffs=torch.tensor([0.012, 0.012, 0.016])[:, None, None]
+             * (1 + 0.03 * r(3, S, S)), cr_pos=cr_pos, cr_q=cr_q)
+    t = {k: v.to(dev).contiguous() for k, v in t.items()}
+    t["consts"] = (20.0, 78000.0, 2.5, 0.015)             # host scalars
+    return t
+
+
+def _banded_args(t):
+    return {k: v for k, v in t.items() if k != "add"}
+
+
+def _full_frame_args(t):
+    return {k: v for k, v in t.items()
+            if k not in ("y0", "band", "cr_pos", "cr_q")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("ipc", [False, True])
+def test_banded_step_matches_plain(card, noise, ipc):
+    """The banded read step's kernel = its plain version on the card."""
+    args = _banded_args(_step_inputs(card))
+    kw = dict(poisson=noise, read_noise=noise, ipc=ipc)
+    cum, dn = read_step_banded(read=7, **args, **kw)
+    cum_w, dn_w = read_step_banded_plain(read=7, **args, **kw)
+    torch.testing.assert_close(dn, dn_w, rtol=1e-5, atol=0)
+    torch.testing.assert_close(cum, cum_w, rtol=1e-5, atol=0)
+    assert read_step_banded(read=7, **args, **kw)[1].equal(dn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [False, True])
+def test_full_frame_step_matches_plain(card, noise):
+    """The full-frame read step's kernel = its plain version on the card."""
+    args = _full_frame_args(_step_inputs(card))
+    kw = dict(poisson=noise, read_noise=noise)
+    cum, dn = read_step(read=7, **args, **kw)
+    cum_w, dn_w = read_step_plain(read=7, **args, **kw)
+    torch.testing.assert_close(dn, dn_w, rtol=1e-5, atol=0)
+    torch.testing.assert_close(cum, cum_w, rtol=1e-5, atol=0)
+    assert read_step(read=7, **args, **kw)[1].equal(dn)
+
+
+@pytest.mark.cuda
+def test_steps_reject_bad_inputs(card):
+    t = _step_inputs(card)
+    with pytest.raises(ValueError, match="bg_rate"):
+        read_step_banded(read=1, **dict(_banded_args(t),
+                                        bg_rate=t["bg_rate"].cpu()))
+    with pytest.raises(TypeError, match="y0"):
+        read_step_banded(read=1, **dict(_banded_args(t),
+                                        y0=t["y0"].to(torch.int64)))
+    with pytest.raises(ValueError, match="cum"):
+        read_step(read=1, **dict(_full_frame_args(t), cum=t["cum"][:1]))
+    with pytest.raises(ValueError, match="contiguous"):
+        read_step(read=1, **dict(_full_frame_args(t),
+                                 add=t["add"].transpose(1, 2)))
+
+
+@pytest.mark.cuda
+def test_per_read_route_on_the_card(card):
+    """A tiny visit through the per-read kernels (fused_reads=False): the
+    deterministic effects agree with the CPU's plain versions to the
+    tolerance of tests/test_torch_observation.py, and with the noise on
+    the reads equal the whole-exposure route's on >= 99.9% of pixels."""
+    def simulate(noise, dev, fused, band):
+        obs = Observation(config_from_dict(dict(TINY, noise=noise)),
+                          device=dev)
+        obs.static = dataclasses.replace(obs.static, fused_reads=fused,
+                                         band_px=band)
+        return obs.simulate(chunk=4).reads_dn.cpu()
+    # band 0 without IPC runs the full-frame step, else the banded one
+    for band, ipc in ((0, False), (0, True), (32, True)):
+        quiet = dict(DETERMINISTIC, ipc=ipc)
+        got = simulate(quiet, "cuda", False, band)
+        want = simulate(quiet, "cpu", False, band)
+        torch.testing.assert_close(got, want, rtol=2e-5,
+                                   atol=max(1e-3, 5e-6 * float(want.max())))
+        noisy = {"preset": "all", "ipc": ipc}
+        per = simulate(noisy, "cuda", False, band)
+        fused = simulate(noisy, "cuda", True, band)
+        assert float((per == fused).float().mean()) >= 0.999, (band, ipc)
 
 
 @pytest.mark.cuda

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from wayne_tpu.calibration import quadrant_map, synthetic_tables
 from wayne_tpu.config import ExposureStatic, NoiseFlags
@@ -37,9 +38,9 @@ def _static_t(cfg_j: ExposureStatic) -> config_t.ExposureStatic:
     return config_t.ExposureStatic(**kw)
 
 
-def _run_port(cfg_j, tables_j, scene_j):
-    """The port on the JAX package's inputs (one exposure, batched)."""
-    batched = jax.tree_util.tree_map(lambda x: x[None], scene_j)
+def _run_port(cfg_j, tables_j, *scenes_j):
+    """The port on the JAX package's inputs (the scenes batched)."""
+    batched = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *scenes_j)
     return simulate_exposure(
         scenes_from_numpy(numpy_leaves(batched), "cpu"),
         tables_from_numpy(numpy_leaves(tables_j), "cpu"), _static_t(cfg_j))
@@ -164,12 +165,80 @@ def test_ssv_random_walk_is_decided_on_the_host():
     assert not torch.allclose(reads(0.05, walk), flat, rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("band,ipc", [(16, True), (0, False), (0, True)])
+def test_per_read_route_matches_jax(band, ipc):
+    """``fused_reads=False`` against the JAX package's per-read path (its
+    Pallas kernels in TPU interpret mode), the stochastic effects off:
+    band 16 runs the banded step on both sides (B2), band 0 with IPC off
+    the full-frame step (B3); band 0 with IPC on holds the JAX package's
+    XLA chain against the port's banded step at W = S."""
+    S, NL, NSAMP = 64, 32, 3
+    tables = synthetic_tables("G141", subarray=S, n_lambda=NL,
+                              samp_seq="SPARS10", nsamp=NSAMP)
+    scene = dataclasses.replace(example_scene(NL, scan_speed=1.0),
+                                x_ref=jnp.float32(10.0),
+                                y_ref=jnp.float32(10.0))
+    cfg = ExposureStatic(subarray=S, n_lambda=NL, n_sub=4, nsamp=NSAMP,
+                         samp_seq="SPARS10", scan=True,
+                         noise=dataclasses.replace(DETERMINISTIC, ipc=ipc),
+                         band_px=band, transit_quad=16, use_pallas=True,
+                         fused_reads=False)
+    with pltpu.force_tpu_interpret_mode():
+        ref = simulate_exposure_j(scene, tables, cfg)
+    got = _run_port(cfg, tables, scene)
+    # the bar of tests/test_pallas.py's Pallas-vs-XLA check: the JAX
+    # package's own per-read kernels differ from its XLA chain by up to
+    # 9.8e-4 DN here
+    np.testing.assert_allclose(got.reads_dn[0].numpy(),
+                               np.asarray(ref.reads_dn), rtol=2e-5, atol=1e-3)
+    peak = float(np.asarray(ref.ideal_e).max())
+    np.testing.assert_allclose(got.ideal_e[0].numpy(),
+                               np.asarray(ref.ideal_e), rtol=2e-5,
+                               atol=5e-6 * peak)
+    assert float(got.saturated_frac[0]) == float(ref.saturated_frac)
+
+
+@pytest.mark.parametrize("band,ipc", [(16, False), (16, True), (0, False),
+                                      (0, True)])
+def test_per_read_route_draws_what_the_fused_route_draws(band, ipc):
+    """With the full noise chain on (Poisson, read noise, cosmic rays,
+    bias drift), ``fused_reads=False`` gives the whole-exposure route's
+    reads: bit for bit wherever the banded step runs (the same draws and
+    the same order of sums), and to rtol 1e-5 on the full-frame step,
+    which sums (cum + band + hits) + background where the whole-exposure
+    kernel sums ((cum + background) + band) + hits."""
+    S, NL, NSAMP = 64, 32, 3
+    tables = synthetic_tables("G141", subarray=S, n_lambda=NL,
+                              samp_seq="SPARS10", nsamp=NSAMP)
+    scenes = [dataclasses.replace(example_scene(NL, seed=i, scan_speed=1.0),
+                                  x_ref=jnp.float32(10.0 + 3 * i),
+                                  y_ref=jnp.float32(10.0 + 5 * i))
+              for i in range(2)]
+    # a cosmic-ray rate that puts hits, and pixels hit twice, on 64^2
+    tables = dataclasses.replace(tables, cr_rate_px_s=jnp.float32(2e-3))
+    cfg = ExposureStatic(subarray=S, n_lambda=NL, n_sub=4, nsamp=NSAMP,
+                         samp_seq="SPARS10", scan=True,
+                         noise=dataclasses.replace(NoiseFlags.all(), ipc=ipc),
+                         band_px=band, transit_quad=16, max_cr_per_read=64)
+    fused = _run_port(cfg, tables, *scenes)
+    per = _run_port(dataclasses.replace(cfg, fused_reads=False), tables,
+                    *scenes)
+    assert int(fused.cr_count.sum()) > 0
+    if band or ipc:
+        assert torch.equal(per.reads_dn, fused.reads_dn)
+    else:
+        torch.testing.assert_close(per.reads_dn, fused.reads_dn, rtol=1e-5,
+                                   atol=0)
+    for name in ("ideal_e", "saturated_frac", "cr_pos", "cr_count"):
+        assert torch.equal(getattr(per, name), getattr(fused, name)), name
+
+
 def test_unported_paths_raise():
     S, NL = 64, 16
     tables = synthetic_tables("G141", subarray=S, n_lambda=NL, nsamp=2)
     scene = example_scene(NL)
-    for kw in (dict(fused_reads=False), dict(exact_poisson=True),
-               dict(extra_beams=True), dict(eclipse=True)):
+    for kw in (dict(exact_poisson=True), dict(extra_beams=True),
+               dict(eclipse=True)):
         cfg = ExposureStatic(subarray=S, n_lambda=NL, nsamp=2, **kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             _run_port(cfg, tables, scene)

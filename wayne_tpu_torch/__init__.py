@@ -1,10 +1,11 @@
 """wayne_tpu_torch: the PyTorch/CUDA port of wayne_tpu (the HST WFC3 IR
 grism visit simulator), beside the JAX package it was ported from.
 
-Plain tensor work is PyTorch; the up-the-ramp readout, a Pallas kernel in
-the JAX package, is a CUDA C++ kernel written for Hopper
-(``csrc/readout.cu``, bound in :mod:`wayne_tpu_torch.ops.readout`). CPU
-tensors take that kernel's plain PyTorch version.
+Plain tensor work is PyTorch; the up-the-ramp readout, three Pallas
+kernels in the JAX package, is three CUDA C++ kernels written for Hopper
+(``csrc/readout.cu`` and ``csrc/read_step.cu``, bound in
+:mod:`wayne_tpu_torch.ops.readout`). CPU tensors take their plain PyTorch
+versions.
 
 fp32 contractions (the splat, the light curve's hat-weight interpolation)
 must run in full float32: TF32 keeps ~3 decimal digits, far above the

@@ -97,11 +97,13 @@ class ExposureStatic:
     #                              raises)
     use_pallas: bool = False     # accepted for config compatibility and
     #                              ignored: the tensors' device decides
-    #                              (CUDA -> the readout kernel, CPU -> its
-    #                              plain PyTorch version)
+    #                              (CUDA -> the readout kernels, CPU ->
+    #                              their plain PyTorch versions)
     fused_reads: bool = True     # whole-exposure readout (one launch per
-    #                              chunk of exposures); False selects the
-    #                              per-read kernels (not yet ported: raises)
+    #                              chunk of exposures); False reads out one
+    #                              read at a time (NSAMP + 1 launches per
+    #                              chunk): the banded step, or the
+    #                              full-frame step with the band and IPC off
     x_psf: bool = False          # also blur the dispersion direction with the
     #                              PSF (reference models cross-dispersion only;
     #                              costs nothing extra — same closed form)

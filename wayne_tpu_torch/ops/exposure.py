@@ -10,15 +10,24 @@ package's ``vmap`` written out as a leading dimension) and over reads:
      profiles inside a row band around the scan position,
   3. the splat, band = Y^T (counts X): two fp32 contractions (TF32 off).
 
-The back half is one call of the whole-exposure readout
-(:func:`wayne_tpu_torch.ops.readout.exposure_readout`): the CUDA kernel on
-the card, its plain version on the CPU. One readout serves every window
-width: the full-frame window (``band_px = 0``, W = S, as the direct image
-uses) goes through it too.
+The back half is the readout (:mod:`wayne_tpu_torch.ops.readout`: the
+CUDA kernels on the card, their plain versions on the CPU), by one of two
+routes that draw the same random numbers:
+
+  * ``fused_reads`` (the default): one call of the whole-exposure readout
+    for every read of the chunk. It serves every window width: the
+    full-frame window (``band_px = 0``, W = S, as the direct image uses)
+    goes through it too.
+  * ``fused_reads=False``: one call per emitted read (NSAMP + 1 per
+    chunk; read 0 is a read with zero entries). The band is Poisson-
+    sampled in torch first; then the banded read step runs, or, with the
+    band off and IPC off, the full-frame read step on the band plus the
+    cosmic-ray hits. With the band off and IPC on, the banded step runs
+    at W = S, y0 = 0.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-the per-read kernels (``fused_reads=False``), ``exact_poisson``, unstable
-(RTS) pixels, ``extra_beams`` and the eclipse/phase-curve light.
+``exact_poisson``, unstable (RTS) pixels, ``extra_beams`` and the
+eclipse/phase-curve light.
 """
 
 from __future__ import annotations
@@ -38,7 +47,10 @@ from wayne_tpu_torch.ops.random import (
     TAG_BIAS_DRIFT, TAG_CR_COUNT, TAG_CR_HIT, TAG_SSV_WALK, box_muller,
     fast_poisson, key_words, philox4x32, uniform24,
 )
-from wayne_tpu_torch.ops.readout import exposure_readout
+from wayne_tpu_torch.ops.readout import (
+    add_hits, exposure_readout, hit_ranks, read_step, read_step_banded,
+    sample_band,
+)
 from wayne_tpu_torch.ops.transit import transit_light_curve
 from wayne_tpu_torch.scene import Scene
 from wayne_tpu_torch.trends import (
@@ -59,8 +71,6 @@ class ExposureResult:
 
 def _check_supported(tables: Tables, cfg: ExposureStatic) -> None:
     todo = {
-        "fused_reads=False (the per-read kernels, ROADMAP Queue B2/B3)":
-            not cfg.fused_reads,
         "exact_poisson (ROADMAP Queue A3)": cfg.exact_poisson,
         "extra_beams (ROADMAP Queue A7)": cfg.extra_beams,
         "eclipse / phase-curve light (ROADMAP Queue A7)": cfg.eclipse,
@@ -251,31 +261,38 @@ def simulate_exposure(scene: Scene, tables: Tables,
         cr_q = torch.zeros((B, R, n_cr), dtype=f32, device=dev)
         cr_count = torch.zeros((B, R), dtype=torch.int32, device=dev)
 
-    # --- the readout: one call for every read of the batch ---------------
-    # Per-emitted-read arrays; read 0 is zero entries (dt = 0, zero band,
-    # no CR): Poisson(0) = 0 in every regime.
+    # --- the readout: per-emitted-read entries; read 0 is zero entries
+    # (dt = 0, zero band, no CR): Poisson(0) = 0 in every regime.
     nr = R + 1
     zero_i = torch.zeros((B, 1), dtype=torch.int32, device=dev)
-    reads_dn, cum = exposure_readout(
-        scene.seed.to(torch.int32).contiguous(),
-        torch.cat([zero_i, y0], dim=1).contiguous(),
-        torch.cat([torch.zeros(1, dtype=f32, device=dev), dt]
-                  ).expand(B, nr).contiguous(),
-        torch.cat([torch.zeros((B, 1, W, S), dtype=f32, device=dev), frames],
-                  dim=1).contiguous(),
-        bg_rate.contiguous(), tables.bias_map.contiguous(),
+    y0s = torch.cat([zero_i, y0], dim=1)
+    dts = torch.cat([torch.zeros(1, dtype=f32, device=dev), dt]
+                    ).expand(B, nr)
+    cr_pos_all = torch.cat([torch.zeros((B, 1, 2, n_cr), dtype=torch.int32,
+                                        device=dev), cr_pos], dim=1)
+    cr_q_all = torch.cat([torch.zeros((B, 1, n_cr), dtype=f32, device=dev),
+                          cr_q], dim=1)
+    readout = dict(
+        seed=scene.seed.to(torch.int32).contiguous(),
+        bg_rate=bg_rate.contiguous(), bias_map=tables.bias_map.contiguous(),
         # the kernel contract: the gain operand is the RECIPROCAL plane
-        (1.0 / tables.gain_map).contiguous(),
-        tables.nonlin_coeffs.contiguous(),
-        torch.cat([torch.zeros((B, 1, 2, n_cr), dtype=torch.int32,
-                               device=dev), cr_pos], dim=1).contiguous(),
-        torch.cat([torch.zeros((B, 1, n_cr), dtype=f32, device=dev), cr_q],
-                  dim=1).contiguous(),
-        tables.readout_consts,
+        inv_gain=(1.0 / tables.gain_map).contiguous(),
+        nl_coeffs=tables.nonlin_coeffs.contiguous(),
+        consts=tables.readout_consts,
         poisson=flags.poisson, read_noise=flags.read_noise,
         non_linearity=flags.non_linearity, bias=flags.bias,
-        scalar_gain=not flags.gain_variations, with_cr=flags.cosmic_rays,
-        bg_poisson=has_bg, ipc=flags.ipc)
+        scalar_gain=not flags.gain_variations, bg_poisson=has_bg)
+    if cfg.fused_reads:
+        reads_dn, cum = exposure_readout(
+            y0s=y0s.contiguous(), dts=dts.contiguous(),
+            bands=torch.cat([torch.zeros((B, 1, W, S), dtype=f32,
+                                         device=dev), frames],
+                            dim=1).contiguous(),
+            cr_pos=cr_pos_all.contiguous(), cr_q=cr_q_all.contiguous(),
+            with_cr=flags.cosmic_rays, ipc=flags.ipc, **readout)
+    else:
+        reads_dn, cum = _read_by_read(y0s, dts, frames, cr_pos_all, cr_q_all,
+                                      flags, readout)
     sat = (cum >= tables.full_well_e).to(f32).mean(dim=(-2, -1))
     if flags.bias_drift:
         reads_dn = reads_dn + _bias_drift_dn(scene.seed, tables, cfg,
@@ -283,3 +300,48 @@ def simulate_exposure(scene: Scene, tables: Tables,
     return ExposureResult(reads_dn=reads_dn, ideal_e=ideal_e,
                           saturated_frac=sat, cr_pos=cr_pos,
                           cr_count=cr_count)
+
+
+def _read_by_read(y0s, dts, frames, cr_pos, cr_q, flags, readout):
+    """The readout one emitted read at a time (``fused_reads=False``):
+    NSAMP + 1 launches per chunk. Per-emitted-read entries as for the
+    whole-exposure readout (y0s, dts (B, NR); cr_pos (B, NR, 2, MAX_CR),
+    cr_q (B, NR, MAX_CR)); frames (B, NSAMP, W, S) are the intervals'
+    expected bands. Returns (reads_dn (B, NR, S, S), the last cum)."""
+    B, R, W, S = frames.shape
+    dev = frames.device
+    seed = readout["seed"]
+    # per-read slices of the leading read axis are contiguous
+    y0s, dts = y0s.t().contiguous(), dts.t().contiguous()
+    cr_pos = cr_pos.transpose(0, 1).contiguous()
+    cr_q = cr_q.transpose(0, 1).contiguous()
+    # Band off and IPC off: the full-frame step (B3) on band + hits. Band
+    # off with IPC on runs the banded step at W = S, y0 = 0 (B2), which
+    # computes the same chain with IPC.
+    full_frame = W == S and not flags.ipc
+    if full_frame and flags.cosmic_rays:
+        # hits on one pixel add in list order; one wait for the host per
+        # chunk, for the number of scatters that takes
+        ranks = hit_ranks(cr_pos, cr_q)
+        n_ranks = int(ranks.max()) + 1
+    cum = torch.zeros((B, S, S), dtype=torch.float32, device=dev)
+    reads = []
+    for k in range(R + 1):
+        if k == 0:
+            band = torch.zeros((B, W, S), dtype=torch.float32, device=dev)
+        elif flags.poisson:
+            band = sample_band(seed, k, y0s[k], frames[:, k - 1])
+        else:
+            band = frames[:, k - 1]
+        if full_frame:
+            if flags.cosmic_rays:
+                band = add_hits(band, cr_pos[k], cr_q[k], ranks[k], n_ranks)
+            cum, dn = read_step(read=k, dt=dts[k], cum=cum,
+                                add=band.contiguous(), **readout)
+        else:
+            cum, dn = read_step_banded(
+                read=k, y0=y0s[k], dt=dts[k], cum=cum,
+                band=band.contiguous(), cr_pos=cr_pos[k], cr_q=cr_q[k],
+                with_cr=flags.cosmic_rays, ipc=flags.ipc, **readout)
+        reads.append(dn)
+    return torch.stack(reads, dim=1), cum

@@ -4,7 +4,7 @@ The port replaces ``jax.random`` keys by explicit seed words: every draw is
 Philox4x32-10 of (key = two 32-bit seed words, counter = four 32-bit
 words), so a draw depends only on (exposure seed, read, pixel or entry,
 stream tag) — never on the device, the batch size or the kernel's tiling.
-The readout kernel (``csrc/readout.cu``) carries the same Philox; this
+The readout kernels (``csrc/detector.cuh``) carry the same Philox; this
 module's torch version is bit-identical to it (uint32 words carried in
 int64 tensors, so products never overflow).
 
@@ -24,7 +24,7 @@ _PHILOX_W0 = 0x9E3779B9
 _PHILOX_W1 = 0xBB67AE85
 
 # Stream tags (third counter word). The readout kernel's tags 0..3 are
-# mirrored in csrc/readout.cu; the rest are drawn on the torch side only.
+# mirrored in csrc/detector.cuh; the rest are drawn on the torch side only.
 TAG_BOX_MULLER = 0     # background z and read-noise z, one pair per read
 TAG_BAND_NORMAL = 1    # the signal band's Box-Muller normal
 TAG_BG_UNIFORM = 2     # small-lambda uniform of the background sampler
@@ -108,8 +108,8 @@ def fast_poisson(lam: torch.Tensor, u: torch.Tensor,
                  z: torch.Tensor) -> torch.Tensor:
     """Poisson(lam) as float32 from a uniform ``u`` and a normal ``z`` of
     lam's shape: the JAX package's branch-free three-regime sampler, with
-    the readout kernel's arithmetic (``csrc/readout.cu``), so the kernel
-    and its plain version agree to the bit. lam <= 0 gives exactly 0;
+    the readout kernels' arithmetic (``csrc/detector.cuh``), so the kernels
+    and their plain versions agree to the bit. lam <= 0 gives exactly 0;
     0 < lam < 3 the exact 12-term inverse transform on ``u``; up to 100
     Cornish-Fisher round(lam + sqrt(lam) z + (z^2 - 1)/6); plain Gaussian
     above."""

@@ -1,28 +1,40 @@
-"""Whole-exposure up-the-ramp readout: the CUDA kernel, its plain PyTorch
-version and the wrapper that picks between them by device.
+"""Up-the-ramp readout: the CUDA kernels, their plain PyTorch versions and
+the wrappers that pick between them by device.
 
-Port of the JAX package's Pallas kernel ``fused_exposure_readout``
-(``wayne_tpu/ops/pallas_readout.py``, body ``_kernel_exposure``). For every
-read k of every exposure in a chunk, with the accumulated charge kept per
-pixel across reads:
+Three kernels, ports of the JAX package's Pallas kernels in
+``wayne_tpu/ops/pallas_readout.py``:
 
-    cum += Poisson(bg_rate * dt_k)                 (three-regime sampler)
-    cum[y0_k : y0_k + W] += Poisson(band_k)        (expected signal band)
-    cum[y, x] += q for this read's cosmic-ray hits
-    sig = nonlin(min(cum, fw)) -> IPC -> + bias -> + rn * N(0, 1)
-    reads_dn[k] = sig * inv_gain                   (reciprocal gain plane)
+* :func:`exposure_readout` (``csrc/readout.cu``, port of
+  ``fused_exposure_readout``): every read of a chunk of exposures in one
+  launch, the charge kept per pixel across reads. For every read k:
+
+      cum += Poisson(bg_rate * dt_k)                 (three-regime sampler)
+      cum[y0_k : y0_k + W] += Poisson(band_k)        (expected signal band)
+      cum[y, x] += q for this read's cosmic-ray hits
+      sig = nonlin(min(cum, fw)) -> IPC -> + bias -> + rn * N(0, 1)
+      reads_dn[k] = sig * inv_gain                   (reciprocal gain plane)
+
+* :func:`read_step_banded` (``csrc/read_step.cu``, port of
+  ``fused_read_step_banded``): one read of the same chain, the charge
+  passed in and returned, the band already sampled (:func:`sample_band`).
+* :func:`read_step` (``csrc/read_step.cu``, port of ``fused_read_step``):
+  one read over the full frame, ``cum = (cum + add) + Poisson(bg_rate *
+  dt)`` with ``add`` the already sampled band and hits, no IPC.
 
 The charge starts at zero. Read 0 is a read whose interval entries are
 zero (dt = 0, zero band, no CR): Poisson(0) = 0 in every regime, so it
 emits the bias frame.
 
 Randomness is Philox4x32-10 keyed by the exposure's two seed words, with
-counter (k, y * S + x, stream tag, 0) (see
-:mod:`wayne_tpu_torch.ops.random`). The kernel and the plain version draw
-the same numbers; which pixel a thread owns never changes a draw.
+counter (k, y * S + x, stream tag, 0) and k the emitted read index (see
+:mod:`wayne_tpu_torch.ops.random`). All three kernels and their plain
+versions draw the same numbers, so the per-read path draws exactly what
+the whole-exposure path draws; which pixel a thread owns never changes a
+draw.
 
-:func:`exposure_readout` takes the plain version for CPU tensors and
-launches the kernel for CUDA tensors; there is no fallback between them.
+Each wrapper takes the plain version for CPU tensors and launches its
+kernel for CUDA tensors; there is no fallback between them. Each counts
+its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -47,16 +59,18 @@ from wayne_tpu_torch.ops.random import (
 # Reads per launch: NSAMP <= 15 (WFC3) -> at most 16 emitted reads.
 MAX_READS_PER_CALL = 16
 
-# flag bits shared with csrc/readout.cu
+# flag bits shared with csrc/detector.cuh
 _F_POISSON, _F_READ_NOISE, _F_NONLIN, _F_BIAS = 1, 2, 4, 8
 _F_SCALAR_GAIN, _F_CR, _F_BG_POISSON, _F_IPC = 16, 32, 64, 128
 
 
 def _small_lambda_uniform(lam, k0, k1, k, pix, tag) -> torch.Tensor:
-    """The exact branch's uniform, drawn only when some lam lies in (0, 3),
-    as the kernel draws it only in that branch (draws are counter-based:
-    skipping one changes no other)."""
-    if not bool(((lam > 0.0) & (lam < T_EXACT)).any()):
+    """The exact branch's uniform. The kernels draw it only in that branch,
+    and draws are counter-based, so skipping it changes no other draw: a
+    CPU tensor skips it when no lam lies in (0, 3). On the card it is
+    always drawn, since asking would make the host wait for the card."""
+    if lam.device.type == "cpu" and not bool(
+            ((lam > 0.0) & (lam < T_EXACT)).any()):
         return torch.zeros_like(lam)
     return uniform24(philox4x32(k0, k1, k, pix, tag, 0)[0])
 
@@ -77,6 +91,173 @@ def _scalars(consts) -> tuple[float, float, float, float, float]:
             float(_f32(1.0) / _f32(gain)), float(_f32(alpha)))
 
 
+def _flag_bits(*, poisson=False, read_noise=False, non_linearity=False,
+               bias=False, scalar_gain=False, with_cr=False,
+               bg_poisson=False, ipc=False) -> int:
+    return ((_F_POISSON if poisson else 0)
+            | (_F_READ_NOISE if read_noise else 0)
+            | (_F_NONLIN if non_linearity else 0) | (_F_BIAS if bias else 0)
+            | (_F_SCALAR_GAIN if scalar_gain else 0)
+            | (_F_CR if with_cr else 0)
+            | (_F_BG_POISSON if bg_poisson else 0) | (_F_IPC if ipc else 0))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU tensors; on the card only to check a kernel)
+# ---------------------------------------------------------------------------
+
+def sample_band(seed: torch.Tensor, read: int, y0: torch.Tensor,
+                band: torch.Tensor) -> torch.Tensor:
+    """Poisson(band) on the whole-exposure kernel's counters: band element
+    (r, x) of exposure b draws at pixel (y0_b + r) * S + x of read
+    ``read``, tags TAG_BAND_NORMAL and TAG_BAND_UNIFORM.
+
+    seed (B, 2) int32, y0 (B,) int32, band (B, W, S) expected electrons.
+    """
+    B, W, S = band.shape
+    dev = band.device
+    k0, k1 = key_words(seed)
+    k0p, k1p = k0[:, None, None], k1[:, None, None]
+    rows = y0.long()[:, None, None] + torch.arange(W, device=dev)[:, None]
+    bpix = rows * S + torch.arange(S, device=dev)
+    n0, n1, _, _ = philox4x32(k0p, k1p, read, bpix, TAG_BAND_NORMAL, 0)
+    return fast_poisson(band, _small_lambda_uniform(
+        band, k0p, k1p, read, bpix, TAG_BAND_UNIFORM), box_muller(n0, n1)[0])
+
+
+def hit_ranks(cr_pos: torch.Tensor, cr_q: torch.Tensor) -> torch.Tensor:
+    """For each hit of each list, how many earlier hits of its list (with
+    a non-zero charge) land on its pixel. cr_pos (..., 2, n) int32, cr_q
+    (..., n) -> (..., n) int64."""
+    n = cr_q.shape[-1]
+    y, x = cr_pos[..., 0, :], cr_pos[..., 1, :]
+    same = ((y[..., :, None] == y[..., None, :])
+            & (x[..., :, None] == x[..., None, :]))
+    earlier = torch.ones((n, n), dtype=torch.bool,
+                         device=cr_q.device).tril(-1)          # j < i
+    return (same & earlier & (cr_q != 0)[..., None, :]).sum(-1)
+
+
+def add_hits(frame: torch.Tensor, cr_pos: torch.Tensor, cr_q: torch.Tensor,
+             ranks: torch.Tensor | None = None,
+             n_ranks: int | None = None) -> torch.Tensor:
+    """frame (B, S, S) plus one read's cosmic-ray hits (cr_pos (B, 2, n)
+    rows/cols, cr_q (B, n)), hits on one pixel added in list order as the
+    kernels add them, on any device: one scatter per rank of
+    :func:`hit_ranks`, each of which adds at most one non-zero charge to a
+    pixel. ``ranks``/``n_ranks`` may be given to spare the host the wait
+    for ``ranks.max()``."""
+    B, S, _ = frame.shape
+    if ranks is None:
+        ranks = hit_ranks(cr_pos, cr_q)
+    if n_ranks is None:
+        n_ranks = int(ranks.max()) + 1 if ranks.numel() else 0
+    base = (torch.arange(B, device=frame.device) * (S * S))[:, None]
+    idx = (base + cr_pos[:, 0].long() * S + cr_pos[:, 1].long()).reshape(-1)
+    flat = frame.reshape(-1).clone()
+    for r in range(n_ranks):
+        flat.index_put_((idx,), torch.where(ranks == r, cr_q, 0.0).reshape(-1),
+                        accumulate=True)
+    return flat.view(B, S, S)
+
+
+def _normals(seed, read, S, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (background z, read-noise z) pair of every pixel of one read,
+    (B, S, S) each."""
+    k0, k1 = key_words(seed)
+    pix = torch.arange(S * S, device=dev, dtype=torch.int64).view(1, S, S)
+    b0, b1, _, _ = philox4x32(k0[:, None, None], k1[:, None, None], read,
+                              pix, TAG_BOX_MULLER, 0)
+    return box_muller(b0, b1)
+
+
+def _add_background(cum, lam, sampled, z_bg, seed, read) -> torch.Tensor:
+    if not sampled:
+        return cum + lam
+    S = lam.shape[-1]
+    k0, k1 = key_words(seed)
+    k0p, k1p = k0[:, None, None], k1[:, None, None]
+    pix = torch.arange(S * S, device=lam.device,
+                       dtype=torch.int64).view(1, S, S)
+    return cum + fast_poisson(lam, _small_lambda_uniform(
+        lam, k0p, k1p, read, pix, TAG_BG_UNIFORM), z_bg)
+
+
+def _emit(cum, nl_coeffs, bias_map, inv_gain, z_rn, consts, *,
+          non_linearity, ipc, bias, read_noise, scalar_gain) -> torch.Tensor:
+    """The readout chain: nonlin(min(cum, fw)) -> IPC -> + bias ->
+    + rn * z -> * inv_gain."""
+    rn, fw, inv_fw, inv_gain_s, alpha = _scalars(consts)
+    sig = cum
+    if non_linearity:
+        c1, c2, c3 = nl_coeffs[0], nl_coeffs[1], nl_coeffs[2]
+        s = torch.clamp_max(sig, fw)
+        q = s * inv_fw
+        sig = s * (1.0 - ((c3 * q + c2) * q + c1) * q)
+    if ipc:
+        z = torch.nn.functional.pad(sig, (1, 1, 1, 1))
+        up, down = z[:, :-2, 1:-1], z[:, 2:, 1:-1]
+        left, right = z[:, 1:-1, :-2], z[:, 1:-1, 2:]
+        one_m4a = float(_f32(1.0) - _f32(4.0) * _f32(alpha))
+        sig = sig * one_m4a + alpha * (up + down + left + right)
+    if bias:
+        sig = sig + bias_map
+    if read_noise:
+        sig = sig + rn * z_rn
+    return sig * (inv_gain_s if scalar_gain else inv_gain)
+
+
+def read_step_banded_plain(
+        seed: torch.Tensor, read: int, y0: torch.Tensor, dt: torch.Tensor,
+        cum: torch.Tensor, band: torch.Tensor, bg_rate: torch.Tensor,
+        bias_map: torch.Tensor, inv_gain: torch.Tensor,
+        nl_coeffs: torch.Tensor, cr_pos: torch.Tensor, cr_q: torch.Tensor,
+        consts, *, poisson: bool = True, read_noise: bool = True,
+        non_linearity: bool = True, bias: bool = True,
+        scalar_gain: bool = False, with_cr: bool = True,
+        bg_poisson: bool = True,
+        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the banded read step (same arguments as
+    :func:`read_step_banded`; same arithmetic, same Philox draws)."""
+    B, W, S = band.shape
+    dev = band.device
+    sampled = poisson and bg_poisson
+    z_bg = z_rn = None
+    if sampled or read_noise:
+        z_bg, z_rn = _normals(seed, read, S, dev)
+    cum = _add_background(cum, bg_rate * dt[:, None, None], sampled, z_bg,
+                          seed, read)
+    ridx = (y0.long()[:, None] + torch.arange(W, device=dev)
+            )[:, :, None].expand(B, W, S)
+    cum = cum.scatter(1, ridx, torch.gather(cum, 1, ridx) + band)
+    if with_cr:
+        cum = add_hits(cum, cr_pos, cr_q)
+    return cum, _emit(cum, nl_coeffs, bias_map, inv_gain, z_rn, consts,
+                      non_linearity=non_linearity, ipc=ipc, bias=bias,
+                      read_noise=read_noise, scalar_gain=scalar_gain)
+
+
+def read_step_plain(
+        seed: torch.Tensor, read: int, dt: torch.Tensor, cum: torch.Tensor,
+        add: torch.Tensor, bg_rate: torch.Tensor, bias_map: torch.Tensor,
+        inv_gain: torch.Tensor, nl_coeffs: torch.Tensor, consts, *,
+        poisson: bool = True, read_noise: bool = True,
+        non_linearity: bool = True, bias: bool = True,
+        scalar_gain: bool = False,
+        bg_poisson: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the full-frame read step (same arguments
+    as :func:`read_step`; same arithmetic, same Philox draws)."""
+    sampled = poisson and bg_poisson
+    z_bg = z_rn = None
+    if sampled or read_noise:
+        z_bg, z_rn = _normals(seed, read, add.shape[-1], add.device)
+    cum = _add_background(cum + add, bg_rate * dt[:, None, None], sampled,
+                          z_bg, seed, read)
+    return cum, _emit(cum, nl_coeffs, bias_map, inv_gain, z_rn, consts,
+                      non_linearity=non_linearity, ipc=False, bias=bias,
+                      read_noise=read_noise, scalar_gain=scalar_gain)
+
+
 def exposure_readout_plain(
         seed: torch.Tensor, y0s: torch.Tensor, dts: torch.Tensor,
         bands: torch.Tensor, bg_rate: torch.Tensor, bias_map: torch.Tensor,
@@ -87,78 +268,42 @@ def exposure_readout_plain(
         scalar_gain: bool = False, with_cr: bool = True,
         bg_poisson: bool = True,
         ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the readout kernel (same arguments as
-    :func:`exposure_readout`; same arithmetic, same Philox draws)."""
+    """Plain PyTorch version of the whole-exposure kernel (same arguments
+    as :func:`exposure_readout`; same arithmetic, same Philox draws): the
+    banded read step for every read, each band sampled first."""
     B, NR, W, S = bands.shape
-    dev = bands.device
-    rn, fw, inv_fw, inv_gain_s, alpha = _scalars(consts)
-    k0, k1 = key_words(seed)
-    k0p, k1p = k0[:, None, None], k1[:, None, None]
-    pix = torch.arange(S * S, device=dev, dtype=torch.int64).view(1, S, S)
-    cum = torch.zeros((B, S, S), dtype=torch.float32, device=dev)
-    c1, c2, c3 = nl_coeffs[0], nl_coeffs[1], nl_coeffs[2]
-    rows = torch.arange(W, device=dev)
-    cols = torch.arange(S, device=dev)
-    reads = torch.empty((B, NR, S, S), dtype=torch.float32, device=dev)
-    need_bm = (poisson and bg_poisson) or read_noise
+    cum = torch.zeros((B, S, S), dtype=torch.float32, device=bands.device)
+    reads = torch.empty((B, NR, S, S), dtype=torch.float32,
+                        device=bands.device)
     for k in range(NR):
-        if need_bm:
-            b0, b1, _, _ = philox4x32(k0p, k1p, k, pix, TAG_BOX_MULLER, 0)
-            z_bg, z_rn = box_muller(b0, b1)
-        lam = bg_rate * dts[:, k, None, None]
-        if poisson and bg_poisson:
-            cum = cum + fast_poisson(lam, _small_lambda_uniform(
-                lam, k0p, k1p, k, pix, TAG_BG_UNIFORM), z_bg)
-        else:
-            cum = cum + lam
-        # the band: rows y0 .. y0 + W of each exposure
-        ridx = (y0s[:, k, None].long() + rows)[:, :, None].expand(B, W, S)
         band = bands[:, k]
         if poisson:
-            bpix = ridx * S + cols
-            n0, n1, _, _ = philox4x32(k0p, k1p, k, bpix, TAG_BAND_NORMAL, 0)
-            band = fast_poisson(band, _small_lambda_uniform(
-                band, k0p, k1p, k, bpix, TAG_BAND_UNIFORM),
-                box_muller(n0, n1)[0])
-        cum = cum.scatter(1, ridx, torch.gather(cum, 1, ridx) + band)
-        if with_cr:
-            base = (torch.arange(B, device=dev) * (S * S))[:, None]
-            idx = base + cr_pos[:, k, 0].long() * S + cr_pos[:, k, 1].long()
-            cum = cum.reshape(-1).index_add(
-                0, idx.reshape(-1), cr_q[:, k].reshape(-1)).view(B, S, S)
-        sig = cum
-        if non_linearity:
-            s = torch.clamp_max(sig, fw)
-            q = s * inv_fw
-            sig = s * (1.0 - ((c3 * q + c2) * q + c1) * q)
-        if ipc:
-            z = torch.nn.functional.pad(sig, (1, 1, 1, 1))
-            up, down = z[:, :-2, 1:-1], z[:, 2:, 1:-1]
-            left, right = z[:, 1:-1, :-2], z[:, 1:-1, 2:]
-            one_m4a = float(_f32(1.0) - _f32(4.0) * _f32(alpha))
-            sig = sig * one_m4a + alpha * (up + down + left + right)
-        if bias:
-            sig = sig + bias_map
-        if read_noise:
-            sig = sig + rn * z_rn
-        reads[:, k] = sig * (inv_gain_s if scalar_gain else inv_gain)
+            band = sample_band(seed, k, y0s[:, k], band)
+        cum, reads[:, k] = read_step_banded_plain(
+            seed, k, y0s[:, k], dts[:, k], cum, band, bg_rate, bias_map,
+            inv_gain, nl_coeffs, cr_pos[:, k], cr_q[:, k], consts,
+            poisson=poisson, read_noise=read_noise,
+            non_linearity=non_linearity, bias=bias, scalar_gain=scalar_gain,
+            with_cr=with_cr, bg_poisson=bg_poisson, ipc=ipc)
     return reads, cum
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel: build at first use, bind with ctypes
+# The CUDA kernels: build at first use, bind with ctypes
 # ---------------------------------------------------------------------------
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                    "readout.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+SOURCES = ("readout.cu", "read_step.cu")       # one object each, one .so
+HEADERS = ("detector.cuh",)
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "build")
 # No --use_fast_math; --fmad=false keeps every multiply and add separately
-# rounded, as PyTorch's one-op kernels round them, so the kernel and its
-# plain version agree to the bit on the card. With FMA on, 0.26% of the
-# noise-on pixels differ from the plain version in the last bit, for ~1%
-# less kernel time on an H100 80GB HBM3 at 700 W (torch_perf_breakdown.py).
+# rounded, as PyTorch's one-op kernels round them, so the kernels and their
+# plain versions agree to the bit on the card. With FMA on, 0.26% of the
+# noise-on pixels of the whole-exposure kernel differ from the plain
+# version in the last bit, for ~1% less kernel time on an H100 80GB HBM3 at
+# 700 W (torch_perf_breakdown.py).
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -166,50 +311,73 @@ _lib_lock = threading.Lock()
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the readout kernel is built "
-                           "from csrc/readout.cu at first use on a CUDA "
+        raise RuntimeError("nvcc not found: the readout kernels are built "
+                           "from wayne_tpu_torch/csrc at first use on a CUDA "
                            "machine")
     return path
 
 
 def library_path(flags: list[str] = NVCC_FLAGS) -> str:
-    """Where the kernel library for the current source and ``flags`` is
-    (or will be)."""
-    with open(_SRC, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(flags).encode())
+    """Where the kernel library for the current sources, headers and
+    ``flags`` is (or will be)."""
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for name in SOURCES + HEADERS:
+        with open(os.path.join(_CSRC, name), "rb") as fh:
+            digest.update(name.encode() + b"\0" + fh.read())
     return os.path.join(_BUILD_DIR, f"libreadout-{digest.hexdigest()[:16]}.so")
 
 
 def build(verbose: bool = False, flags: list[str] = NVCC_FLAGS) -> str:
-    """Compile csrc/readout.cu with ``flags`` into build/ unless that
-    source is already built so; returns the library path. Safe against
-    concurrent builders (compile to a temporary name, then rename)."""
+    """Compile csrc/*.cu with ``flags`` into build/ unless those sources
+    are already built so; returns the library path. The sources compile in
+    parallel, one nvcc each, and link into one shared library. Safe against
+    concurrent builders (build in a temporary directory, then rename)."""
     out = library_path(flags)
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *flags, "-o", tmp, _SRC]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose and proc.stderr:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name + ".o")
+            cmd = [nvcc, *flags, "-c", "-o", obj, os.path.join(_CSRC, name)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            objs.append(obj)
+            procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err}")
+            elif verbose and err:
+                print(err, end="")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *flags, "-shared", "-o", lib, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(lib, out)
     return out
 
 
 def load(path: str) -> ctypes.CDLL:
-    """Open a built kernel library and declare its launcher's signature."""
+    """Open a built kernel library and declare its launchers' signatures."""
     lib = ctypes.CDLL(path)
-    fn = lib.wayne_exposure_readout
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [P] * 12 + [I] * 5 + [F] * 5 + [I, P]
-    fn.restype = I
+    for name, argtypes in (
+            ("wayne_exposure_readout", [P] * 12 + [I] * 5 + [F] * 5 + [I, P]),
+            ("wayne_read_step_banded", [P] * 13 + [I] * 5 + [F] * 5 + [I, P]),
+            ("wayne_read_step", [P] * 10 + [I] * 3 + [F] * 4 + [I, P])):
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = I
     return lib
 
 
@@ -234,6 +402,20 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+def _kernel_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"no readout kernel for device {t.device}")
+    return t.device
+
+
+def _launch(fn, dev: torch.device, *args) -> None:
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+
+
 def exposure_readout(
         seed: torch.Tensor, y0s: torch.Tensor, dts: torch.Tensor,
         bands: torch.Tensor, bg_rate: torch.Tensor, bias_map: torch.Tensor,
@@ -244,7 +426,7 @@ def exposure_readout(
         scalar_gain: bool = False, with_cr: bool = True,
         bg_poisson: bool = True,
         ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every read of a chunk of B exposures in one call.
+    """Every read of a chunk in one call.
 
     Per-read arrays are indexed by EMITTED read (read 0 = zero entries).
 
@@ -269,16 +451,15 @@ def exposure_readout(
     B, NR, W, S = bands.shape
     if NR > MAX_READS_PER_CALL:
         raise ValueError(f"at most {MAX_READS_PER_CALL} reads per call")
-    dev = bands.device
-    if dev.type == "cpu":
+    flags = dict(poisson=poisson, read_noise=read_noise,
+                 non_linearity=non_linearity, bias=bias,
+                 scalar_gain=scalar_gain, with_cr=with_cr,
+                 bg_poisson=bg_poisson, ipc=ipc)
+    if bands.device.type == "cpu":
         return exposure_readout_plain(
-            seed, y0s, dts, bands, bg_rate, bias_map, inv_gain,
-            nl_coeffs, cr_pos, cr_q, consts, poisson=poisson,
-            read_noise=read_noise, non_linearity=non_linearity, bias=bias,
-            scalar_gain=scalar_gain, with_cr=with_cr, bg_poisson=bg_poisson,
-            ipc=ipc)
-    if dev.type != "cuda":
-        raise ValueError(f"no readout kernel for device {dev}")
+            seed, y0s, dts, bands, bg_rate, bias_map, inv_gain, nl_coeffs,
+            cr_pos, cr_q, consts, **flags)
+    dev = _kernel_device(bands)
     n_cr = cr_q.shape[-1]
     f32, i32 = torch.float32, torch.int32
     _check("seed", seed, (B, 2), i32, dev)
@@ -293,28 +474,142 @@ def exposure_readout(
     _check("cr_q", cr_q, (B, NR, n_cr), f32, dev)
     if W > S:
         raise ValueError(f"band width {W} exceeds the frame {S}")
-    rn, fw, inv_fw, inv_gain_s, alpha = _scalars(consts)
-    flags = ((_F_POISSON if poisson else 0)
-             | (_F_READ_NOISE if read_noise else 0)
-             | (_F_NONLIN if non_linearity else 0) | (_F_BIAS if bias else 0)
-             | (_F_SCALAR_GAIN if scalar_gain else 0)
-             | (_F_CR if with_cr else 0)
-             | (_F_BG_POISSON if bg_poisson else 0) | (_F_IPC if ipc else 0))
     reads = torch.empty((B, NR, S, S), dtype=f32, device=dev)
     cum = torch.empty((B, S, S), dtype=f32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _library().wayne_exposure_readout(
+    _launch(_library().wayne_exposure_readout, dev,
             seed.data_ptr(), y0s.data_ptr(), dts.data_ptr(),
-            bands.data_ptr(), bg_rate.data_ptr(), bias_map.data_ptr(), inv_gain.data_ptr(),
-            nl_coeffs.data_ptr(), cr_pos.data_ptr(), cr_q.data_ptr(),
-            reads.data_ptr(), cum.data_ptr(),
-            B, NR, W, S, n_cr, rn, fw, inv_fw, inv_gain_s,
-            alpha, flags, stream)
-    if err != 0:
-        raise RuntimeError(f"readout kernel launch failed: CUDA error {err}")
+            bands.data_ptr(), bg_rate.data_ptr(), bias_map.data_ptr(),
+            inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
+            cr_q.data_ptr(), reads.data_ptr(), cum.data_ptr(),
+            B, NR, W, S, n_cr, *_scalars(consts), _flag_bits(**flags))
     exposure_readout.launches += 1
     return reads, cum
 
 
 exposure_readout.launches = 0
+
+
+def read_step_banded(
+        seed: torch.Tensor, read: int, y0: torch.Tensor, dt: torch.Tensor,
+        cum: torch.Tensor, band: torch.Tensor, bg_rate: torch.Tensor,
+        bias_map: torch.Tensor, inv_gain: torch.Tensor,
+        nl_coeffs: torch.Tensor, cr_pos: torch.Tensor, cr_q: torch.Tensor,
+        consts, *, poisson: bool = True, read_noise: bool = True,
+        non_linearity: bool = True, bias: bool = True,
+        scalar_gain: bool = False, with_cr: bool = True,
+        bg_poisson: bool = True,
+        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """One read of a chunk of B exposures: the background Poisson-sampled
+    on top of ``cum``, the already sampled band added at its row, the
+    cosmic-ray hits deposited in list order, then the readout chain.
+
+    Args:
+      seed: (B, 2) int32 exposure seed words; read: the EMITTED read index
+        (a host int; the third Philox word beside the two seed words).
+      y0: (B,) int32 band start rows (any row, y0 + W <= S); dt: (B,) f32
+        interval durations.
+      cum: (B, S, S) f32 charge before the interval.
+      band: (B, W, S) f32 signal electrons this interval, already sampled
+        (:func:`sample_band`).
+      bg_rate: (B, S, S) expected background electrons per second;
+        bias_map, inv_gain (RECIPROCAL gain plane), nl_coeffs: as for
+        :func:`exposure_readout`.
+      cr_pos: (B, 2, MAX_CR) int32 hit rows/cols; cr_q: (B, MAX_CR) f32
+        charges, zero beyond the hit count.
+      consts: four host scalars (read_noise_e, full_well_e, gain,
+        ipc_alpha).
+      The background is sampled when ``poisson`` and ``bg_poisson``.
+
+    Returns:
+      (cum after the read (B, S, S), read DN (B, S, S)).
+    """
+    B, W, S = band.shape
+    flags = dict(poisson=poisson, read_noise=read_noise,
+                 non_linearity=non_linearity, bias=bias,
+                 scalar_gain=scalar_gain, with_cr=with_cr,
+                 bg_poisson=bg_poisson, ipc=ipc)
+    if band.device.type == "cpu":
+        return read_step_banded_plain(
+            seed, read, y0, dt, cum, band, bg_rate, bias_map, inv_gain,
+            nl_coeffs, cr_pos, cr_q, consts, **flags)
+    dev = _kernel_device(band)
+    n_cr = cr_q.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    _check("seed", seed, (B, 2), i32, dev)
+    _check("y0", y0, (B,), i32, dev)
+    _check("dt", dt, (B,), f32, dev)
+    _check("cum", cum, (B, S, S), f32, dev)
+    _check("band", band, (B, W, S), f32, dev)
+    _check("bg_rate", bg_rate, (B, S, S), f32, dev)
+    _check("bias_map", bias_map, (S, S), f32, dev)
+    _check("inv_gain", inv_gain, (S, S), f32, dev)
+    _check("nl_coeffs", nl_coeffs, (3, S, S), f32, dev)
+    _check("cr_pos", cr_pos, (B, 2, n_cr), i32, dev)
+    _check("cr_q", cr_q, (B, n_cr), f32, dev)
+    if W > S:
+        raise ValueError(f"band width {W} exceeds the frame {S}")
+    cum_out = torch.empty((B, S, S), dtype=f32, device=dev)
+    dn = torch.empty((B, S, S), dtype=f32, device=dev)
+    _launch(_library().wayne_read_step_banded, dev,
+            seed.data_ptr(), y0.data_ptr(), dt.data_ptr(), cum.data_ptr(),
+            band.data_ptr(), bg_rate.data_ptr(), bias_map.data_ptr(),
+            inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
+            cr_q.data_ptr(), cum_out.data_ptr(), dn.data_ptr(),
+            B, W, S, n_cr, int(read), *_scalars(consts), _flag_bits(**flags))
+    read_step_banded.launches += 1
+    return cum_out, dn
+
+
+read_step_banded.launches = 0
+
+
+def read_step(
+        seed: torch.Tensor, read: int, dt: torch.Tensor, cum: torch.Tensor,
+        add: torch.Tensor, bg_rate: torch.Tensor, bias_map: torch.Tensor,
+        inv_gain: torch.Tensor, nl_coeffs: torch.Tensor, consts, *,
+        poisson: bool = True, read_noise: bool = True,
+        non_linearity: bool = True, bias: bool = True,
+        scalar_gain: bool = False,
+        bg_poisson: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """One full-frame read of a chunk of B exposures, without IPC:
+    ``cum = (cum + add) + Poisson(bg_rate * dt)``, then the readout chain.
+
+    Args:
+      seed, read, dt, bg_rate, bias_map, inv_gain, nl_coeffs, consts: as
+        for :func:`read_step_banded`.
+      cum: (B, S, S) f32 charge before the interval.
+      add: (B, S, S) f32 already sampled signal plus cosmic-ray charges
+        of this interval (:func:`sample_band`, :func:`add_hits`).
+
+    Returns:
+      (cum after the read (B, S, S), read DN (B, S, S)).
+    """
+    B, S, _ = add.shape
+    flags = dict(poisson=poisson, read_noise=read_noise,
+                 non_linearity=non_linearity, bias=bias,
+                 scalar_gain=scalar_gain, bg_poisson=bg_poisson)
+    if add.device.type == "cpu":
+        return read_step_plain(seed, read, dt, cum, add, bg_rate, bias_map,
+                               inv_gain, nl_coeffs, consts, **flags)
+    dev = _kernel_device(add)
+    f32 = torch.float32
+    _check("seed", seed, (B, 2), torch.int32, dev)
+    _check("dt", dt, (B,), f32, dev)
+    for name, t in (("cum", cum), ("add", add), ("bg_rate", bg_rate)):
+        _check(name, t, (B, S, S), f32, dev)
+    _check("bias_map", bias_map, (S, S), f32, dev)
+    _check("inv_gain", inv_gain, (S, S), f32, dev)
+    _check("nl_coeffs", nl_coeffs, (3, S, S), f32, dev)
+    rn, fw, inv_fw, inv_gain_s, _ = _scalars(consts)
+    cum_out = torch.empty((B, S, S), dtype=f32, device=dev)
+    dn = torch.empty((B, S, S), dtype=f32, device=dev)
+    _launch(_library().wayne_read_step, dev,
+            seed.data_ptr(), dt.data_ptr(), cum.data_ptr(), add.data_ptr(),
+            bg_rate.data_ptr(), bias_map.data_ptr(), inv_gain.data_ptr(),
+            nl_coeffs.data_ptr(), cum_out.data_ptr(), dn.data_ptr(),
+            B, S, int(read), rn, fw, inv_fw, inv_gain_s, _flag_bits(**flags))
+    read_step.launches += 1
+    return cum_out, dn
+
+
+read_step.launches = 0
