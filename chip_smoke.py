@@ -9,18 +9,19 @@ process per source, in parallel, linked into one library) and then:
 1. holds the whole-exposure kernel against its plain PyTorch version on
    the card at both shapes the main path launches it at: a chunk of the
    visit (S = 512, 16 reads, the auto band, the config's MAX_CR, 8
-   exposures) and the direct image (1 exposure, direct_image_nsamp + 1
-   reads, the full-frame window W = S, on the inputs the main path gives
-   it): noise off with IPC off and on (rtol 1e-5); noise on with the same
-   Philox draws (>= 99.9 % of pixels identical, the rest within a few
-   electrons; a second run bit-identical); then the Poisson regimes'
-   moments and the read-noise sigma;
+   exposures) on synthetic inputs, and the direct image (1 exposure,
+   direct_image_nsamp + 1 reads, the full-frame window W = S, on the main
+   path's inputs): noise off with IPC off and on, and noise on with the
+   same Philox draws, each bit for bit (100% of pixels identical, a second
+   run too); then the Poisson regimes' moments and the read-noise sigma;
 2. drives the main path at full width: ``examples/wasp43b_g141_scan.yml``
    (512^2, NSAMP 15, n_lambda 512, the default noise chain), cut to one
    orbit: ``Observation.simulate()`` and ``Observation.generate()`` for
    the direct image and the first chunk, read back with ``read_ima``. The
    readout's launch counter, zeroed just before, shows the path went
-   through the kernel;
+   through the kernel. The arguments of the first ``simulate()`` chunk's
+   readout call are recorded on the way, and the kernel is then held
+   against its plain version on them as in 1, and timed;
 3. holds the per-read kernels against their plain versions, read by read
    over the chunk's 16 reads: the banded step at W = 32 and the full-frame
    step at W = S, with the bars of phase 1;
@@ -29,7 +30,10 @@ process per source, in parallel, linked into one library) and then:
    the whole-exposure kernel), its reads against the whole-exposure
    route's, then one chunk with ``band_px: 0`` through the full-frame step
    (16 launches);
-5. times each kernel, its plain version and ``simulate()`` on both routes.
+5. times each kernel, its plain version and ``simulate()`` on both routes,
+   and prints each kernel's bound (the bytes over the memory rate against
+   the operations over the rates of their pipes, see ``_bound``) beside the
+   yardstick of the port's first slices.
 
 Prints the card's name and power limit first, a JSON line with the
 kernels' numbers before the last line, and last
@@ -52,14 +56,41 @@ HEADLINE = os.path.join(HERE, "examples", "wasp43b_g141_scan.yml")
 ORBITS = 1                  # the headline visit cut to one orbit
 CHUNK = 8                   # exposures per readout launch
 H100_BYTES_S = 3.35e12      # HBM3 rate (NVIDIA data sheet, H100 SXM)
-H100_FP32_OPS_S = 67e12     # non-tensor fp32 rate; integer work counted
-#                             at the same rate (a generous lower bound)
-PHILOX_OPS = 98             # 10 rounds x (4 multiplies + 4 xors) + 9 x 2
-#                             key additions
-BOX_MULLER_OPS = 10         # log, sqrt, sin, cos + 6 arithmetic
-SAMPLER_OPS = 10            # Cornish-Fisher round(lam + sqrt(lam) z + skew)
-SMALL_LAM_OPS = 40          # exp + 12 x (add, compare, add, 2 multiplies)
-READOUT_OPS = 16            # accumulate, nonlin, bias, noise, gain, store
+H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
+# Lanes per clock per SM for compute capability 9.0 (CUDA C++ Programming
+# Guide, arithmetic instruction throughput): 32-bit integer add, multiply,
+# shift and logic at 64; fp32 add and multiply at 128, which is also the
+# issue rate (4 schedulers x 32 lanes). The integer work splits over two
+# pipes of 64 lanes each: IMAD issues on the FMA-heavy pipe, LOP3, IADD3,
+# shifts and compares on the ALU pipe. No FMA: the kernels build with
+# --fmad=false.
+IMAD_OPS_S = 64 * H100_SMS * H100_CLOCK_HZ      # 16.7e12
+ALU_OPS_S = 64 * H100_SMS * H100_CLOCK_HZ       # 16.7e12
+ISSUE_OPS_S = 128 * H100_SMS * H100_CLOCK_HZ    # 33.5e12
+# (IMAD, ALU, other) operations of each piece of a pixel's read. A
+# Philox4x32-10 block after the first of a kernel adds 42 SASS
+# instructions: 20 IMAD.WIDE.U32 and an IMAD.SHL, 20 LOP3.LUT, one more
+# (the key schedule moves to the uniform datapath; torch_perf_breakdown.py,
+# "philox_sass", on an H100). Each transcendental (log, sqrt, sin, cos,
+# exp) counts as one operation, a floor: without fast math each compiles
+# to a sequence.
+COSTS = {
+    "philox": (21, 20, 1),
+    "box_muller": (0, 2, 14),  # 2 x (shift; convert, scale, floor); log,
+    #                            x -2, sqrt, x 2 pi, sin, cos, 2 products
+    "sampler": (0, 0, 12),     # lam > 0, < 3, < 100; skew z z - 1, / 6;
+    #                            sqrt, x z, 2 adds, round, max
+    "small_lam": (0, 1, 64),   # the uniform (shift; convert, scale,
+    #                            floor), exp, 12 x (add, compare, add, 2
+    #                            products)
+    "readout": (0, 0, 16),     # accumulate, nonlin, bias, noise, gain
+    "cr": (0, 0, 1),           # one deposit
+}
+# The yardstick of the first two slices, printed beside the new bound:
+# every operation at the 67 T/s fp32 rate with FMA counted as two
+OLD_OPS_S = 67e12
+OLD_OPS = {"philox": 98, "box_muller": 10, "sampler": 10, "small_lam": 40,
+           "readout": 16, "cr": 1}
 # the default noise chain's readout flags (IPC off)
 NOISE_ON = dict(poisson=True, read_noise=True, non_linearity=True, bias=True,
                 scalar_gain=False, with_cr=True, bg_poisson=True, ipc=False)
@@ -83,19 +114,26 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, windows: int = 1) -> float:
+    """Time per call of ``fn`` on the card (CUDA events around ``reps``
+    calls), the median of ``windows`` such windows."""
+    import statistics
+
     import torch
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    times = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
 
 
 # ---------------------------------------------------------------------------
@@ -140,120 +178,182 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def _bound(nbytes: int, ops: int) -> tuple[float, str, float, float]:
-    t_bytes = nbytes / H100_BYTES_S * 1e3
-    t_ops = ops / H100_FP32_OPS_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                 else "operations"), t_bytes, t_ops
+def _bound(nbytes: int, work: dict) -> dict:
+    """The least time (ms) for moving ``nbytes`` and doing ``work`` (how
+    many of each piece of COSTS): the largest of the bytes over the memory
+    rate, the IMAD and the ALU operations over their pipes' rates and all
+    operations over the issue rate, and which of them binds
+    (``bound_term``); beside it the first two slices' yardstick
+    (``old_*``)."""
+    n_imad, n_alu, n_other = (sum(n * COSTS[p][i] for p, n in work.items())
+                              for i in range(3))
+    t = dict(bytes_ms=nbytes / H100_BYTES_S * 1e3,
+             imad_ms=n_imad / IMAD_OPS_S * 1e3,
+             alu_ms=n_alu / ALU_OPS_S * 1e3,
+             issue_ms=(n_imad + n_alu + n_other) / ISSUE_OPS_S * 1e3)
+    t["ops_ms"] = max(t["imad_ms"], t["alu_ms"], t["issue_ms"])
+    t["bound_term"] = max(("bytes", "imad", "alu", "issue"),
+                          key=lambda term: t[term + "_ms"])
+    old_ops_ms = sum(n * OLD_OPS[p] for p, n in work.items()) / OLD_OPS_S * 1e3
+    for key, ops_ms in (("", t["ops_ms"]), ("old_", old_ops_ms)):
+        t[key + "bound_ms"] = max(t["bytes_ms"], ops_ms)
+        t[key + "bound_by"] = ("bytes" if t["bytes_ms"] >= ops_ms
+                               else "operations")
+    return t
 
 
-def _read_ops(lam, px_reads: int, cr_q, flags) -> int:
-    """Operations of the background sampler, the normals and the readout
-    chain that ``px_reads`` pixel-reads with background ``lam`` need."""
-    ops = READOUT_OPS * px_reads
-    if cr_q is not None:
-        ops += int((cr_q != 0).sum())                       # CR deposits
+def _read_work(lam, px_reads: int, cr_q, flags) -> dict:
+    """How many of each piece of COSTS the background sampler, the normals
+    and the readout chain of ``px_reads`` pixel-reads with background
+    ``lam`` need, and ``cr_q``'s deposits."""
+    work = dict(readout=px_reads, philox=0, box_muller=0, sampler=0,
+                small_lam=0, cr=0 if cr_q is None else int((cr_q != 0).sum()))
     n_normal = px_reads if flags["read_noise"] else 0
-    if flags["poisson"]:
+    if flags["poisson"] and flags.get("bg_poisson", True):
         # what these inputs need: a normal where lambda >= 3, a uniform and
         # the exact sum where 0 < lambda < 3, nothing where lambda = 0
         gauss = int((lam >= 3).sum())
         small = int(((lam > 0) & (lam < 3)).sum())
         if not flags["read_noise"]:
             n_normal = gauss
-        ops += SAMPLER_OPS * gauss + (PHILOX_OPS + SMALL_LAM_OPS) * small
-    return ops + (PHILOX_OPS + BOX_MULLER_OPS) * n_normal
+        work["sampler"] += gauss
+        work["philox"] += small
+        work["small_lam"] += small
+    work["philox"] += n_normal
+    work["box_muller"] += n_normal
+    return work
 
 
-def bound_of(args, flags) -> tuple[float, str, float, float]:
+def bound_of(args, flags) -> dict:
     """Least time for the whole-exposure readout on these inputs: bytes
     each input and output moves once, and the operations this run's data
-    needs."""
+    needs (see _bound)."""
     seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q, _ = args
     B, NR, W, S = bands.shape
     nbytes = _nbytes(seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos,
                      cr_q) + (B * NR * S * S + B * S * S) * 4  # reads + cum
-    ops = _read_ops(bg[:, None] * dts[:, :, None, None], B * NR * S * S,
-                    cr_q, flags)
+    work = _read_work(bg[:, None] * dts[:, :, None, None], B * NR * S * S,
+                      cr_q if flags.get("with_cr", True) else None, flags)
     if flags["poisson"]:                    # the band, sampled in-kernel
         gauss = int((bands >= 3).sum())
         small = int(((bands > 0) & (bands < 3)).sum())
-        ops += (PHILOX_OPS + BOX_MULLER_OPS + SAMPLER_OPS) * gauss
-        ops += (PHILOX_OPS + SMALL_LAM_OPS) * small
-    return _bound(nbytes, ops)
+        for piece in ("philox", "box_muller", "sampler"):
+            work[piece] += gauss
+        work["philox"] += small
+        work["small_lam"] += small
+    return _bound(nbytes, work)
 
 
-def step_bound_of(kw, flags) -> tuple[float, str, float, float]:
+def step_bound_of(kw, flags) -> dict:
     """Least time for one per-read step on its keyword arguments ``kw``
     (the band or add frame comes sampled: no sampling of it is counted)."""
     import torch
     tensors = [v for v in kw.values() if isinstance(v, torch.Tensor)]
     B, S, _ = kw["cum"].shape
     nbytes = _nbytes(*tensors) + 2 * B * S * S * 4          # cum out + dn
-    return _bound(nbytes, _read_ops(kw["bg_rate"] * kw["dt"][:, None, None],
-                                    B * S * S, kw.get("cr_q"), flags))
+    cr_q = kw.get("cr_q") if flags.get("with_cr", True) else None
+    return _bound(nbytes, _read_work(kw["bg_rate"] * kw["dt"][:, None, None],
+                                     B * S * S, cr_q, flags))
 
 
-def direct_image_inputs(obs) -> tuple[tuple, dict]:
-    """The readout's arguments and flags exactly as the main path gives
-    them for the direct image (B = 1, NR = direct_image_nsamp + 1, W = S),
-    recorded from one ``Observation.simulate_direct_image()``: (the eleven
-    array and scalar arguments in order, the keyword flags)."""
+def bound_line(b: dict) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, "
+            f"{b['bound_term']} binds (bytes {b['bytes_ms']:.4f} ms, IMAD "
+            f"pipe {b['imad_ms']:.4f} ms, ALU pipe {b['alu_ms']:.4f} ms, "
+            f"issue {b['issue_ms']:.4f} ms); the first slices' yardstick "
+            f"{b['old_bound_ms']:.4f} ms by {b['old_bound_by']}")
+
+
+def small_lambda_warp_share(args) -> float:
+    """Share of the warp-reads (32 neighbouring pixels of one row, one
+    read) of the whole-exposure readout on ``args`` in which some pixel
+    takes the exact small-lambda branch (0 < lambda < 3), of the background
+    or of the band."""
+    import torch
+    _, y0s, dts, bands, bg = args[:5]
+    B, NR, W, S = bands.shape
+    small = lambda lam: (lam > 0) & (lam < 3)
+    hit = small(bg[:, None] * dts[:, :, None, None])          # (B, NR, S, S)
+    rows = (y0s.long()[..., None] + torch.arange(W, device=bands.device)
+            )[..., None].expand(B, NR, W, S)
+    hit.scatter_(2, rows, torch.gather(hit, 2, rows) | small(bands))
+    pad = -S % 32
+    hit = torch.nn.functional.pad(hit, (0, pad)) if pad else hit
+    return float(hit.view(B, NR, S, -1, 32).any(-1).float().mean())
+
+
+def recorded_readout(run) -> tuple:
+    """``run()``'s result and the readout's arguments and flags exactly as
+    the main path gives them, recorded from the first ``exposure_readout``
+    call of ``run()``: (result, (the eleven array and scalar arguments in
+    order, the keyword flags))."""
     import inspect
 
     import wayne_tpu_torch.ops.exposure as ex
     real, seen = ex.exposure_readout, []
 
     def record(*args, **kw):
-        seen.append(inspect.signature(real).bind(*args, **kw).arguments)
+        if not seen:
+            seen.append(inspect.signature(real).bind(*args, **kw).arguments)
         return real(*args, **kw)
 
     ex.exposure_readout = record
     try:
-        obs.simulate_direct_image()
+        result = run()
     finally:
         ex.exposure_readout = real
     call, = seen
     names = [p.name for p in inspect.signature(real).parameters.values()
              if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
-    return (tuple(call[n] for n in names),
-            {k: v for k, v in call.items() if k not in names})
+    return result, (tuple(call[n] for n in names),
+                    {k: v for k, v in call.items() if k not in names})
 
 
-def hold_against_plain(kernel, plain, on: dict, gain: float, label: str,
+def hold_against_plain(kernel, plain, on: dict, label: str,
                        variants=({"ipc": False}, {"ipc": True})
                        ) -> list[float]:
     """Kernel against plain version on the same inputs: ``kernel(flags)``
-    and ``plain(flags)`` return (reads, cum). Noise off with each of
-    ``variants`` to rtol 1e-5, then ``on`` (noise on, the same Philox
-    draws). Returns the max abs errors (DN)."""
+    and ``plain(flags)`` return (reads, cum). Both outputs must be
+    bit-identical: noise off with each of ``variants``, then ``on`` (noise
+    on, the same Philox draws), whose second run must repeat the first.
+    Returns the max abs errors (DN)."""
     import torch
     errs = []
-    for extra in variants:
-        off = dict(on, poisson=False, read_noise=False, **extra)
-        got, cum = kernel(off)
-        want, cum_w = plain(off)
+    for name, flags in [(f"noise off {extra}",
+                         dict(on, poisson=False, read_noise=False, **extra))
+                        for extra in variants] + [("noise on", on)]:
+        got, cum = kernel(flags)
+        want, cum_w = plain(flags)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
-        errs.append(err)
-        check(rel <= 1e-5 and torch.allclose(cum, cum_w, rtol=1e-5, atol=0),
-              f"{label}, noise off {extra}: max abs err {err:.3g} DN, "
-              f"max rel err {rel:.3g} <= 1e-5")
-    got, _ = kernel(on)
-    want, _ = plain(on)
+        errs.append(float((got - want).abs().max()))
+        same = float((got == want).float().mean())
+        check(torch.equal(got, want) and torch.equal(cum, cum_w),
+              f"{label}, {name}: max abs err {errs[-1]:.3g} DN, "
+              f"{same * 100:.4f}% of pixels identical to the plain version "
+              "(100%), the charge identical")
     again, _ = kernel(on)
-    torch.cuda.synchronize()
-    same = float((got == want).float().mean())
-    errs.append(float((got - want).abs().max()))
-    worst_e = errs[-1] * gain                       # DN x nominal gain
-    check(same >= 0.999, f"{label}, noise on: {same * 100:.4f}% of pixels "
-          "identical to the plain version (>= 99.9%)")
-    check(worst_e <= 5.0, f"{label}, noise on: the rest within "
-          f"{worst_e:.3g} e- (<= 5)")
     check(torch.equal(got, again),
           f"{label}, noise on: a second run is bit-identical")
     return errs
+
+
+def time_readout(ro, args, flags, label: str, card: str) -> dict:
+    """The whole-exposure kernel's and its plain version's time on
+    ``args``, beside its bound and the share of warps in the exact
+    small-lambda branch."""
+    B = args[3].shape[0]
+    ms = cuda_ms(lambda: ro.exposure_readout(*args, **flags), reps=20,
+                 windows=5)
+    plain_ms = cuda_ms(lambda: ro.exposure_readout_plain(*args, **flags),
+                       reps=2, warmup=1)
+    b = bound_of(args, flags)
+    print(f"timing [{card}]: readout kernel on {label} {ms:.4f} ms/launch "
+          f"({ms / B:.4f} ms/exposure, B={B}), plain version "
+          f"{plain_ms:.3f} ms, {bound_line(b)}; {b['bound_ms'] / ms:.1%} of "
+          f"the bound ({b['old_bound_ms'] / ms:.1%} of the old); "
+          f"{small_lambda_warp_share(args):.2%} of warp-reads take the "
+          "exact small-lambda branch")
+    return dict(b, ms=ms, plain_ms=plain_ms)
 
 
 def phase_kernel(cfg, obs, card: str) -> tuple[dict, tuple]:
@@ -266,32 +366,30 @@ def phase_kernel(cfg, obs, card: str) -> tuple[dict, tuple]:
     times = sample_sequence_times(cfg.samp_seq, cfg.nsamp, S)
     args = readout_inputs(B, NR, W, S, n_cr, times)
     print(f"phase 1: kernel vs plain, chunk B={B} NR={NR} S={S} W={W} "
-          f"MAX_CR={n_cr}")
+          f"MAX_CR={n_cr}, synthetic inputs")
     errs = hold_against_plain(
         lambda f: ro.exposure_readout(*args, **f),
-        lambda f: ro.exposure_readout_plain(*args, **f), NOISE_ON,
-        args[10][2], "chunk")
-    di_args, di_flags = direct_image_inputs(obs)
-    print("phase 1: kernel vs plain, direct image "
-          f"(B, NR, W, S) = {tuple(di_args[3].shape)}, the main path's "
-          f"inputs and flags {di_flags}")
-    errs += hold_against_plain(
-        lambda f: ro.exposure_readout(*di_args, **f),
-        lambda f: ro.exposure_readout_plain(*di_args, **f), di_flags,
-        di_args[10][2], "direct image")
+        lambda f: ro.exposure_readout_plain(*args, **f), NOISE_ON, "chunk")
+    _, direct = recorded_readout(obs.simulate_direct_image)
+    errs += hold_recorded(ro, direct, "phase 1", "direct image")
     moments(ro, S, W, B)
 
-    # timings at the chunk's shapes with the noise on
-    ms = cuda_ms(lambda: ro.exposure_readout(*args, **NOISE_ON), reps=20)
-    plain_ms = cuda_ms(lambda: ro.exposure_readout_plain(*args, **NOISE_ON),
-                       reps=2, warmup=1)
-    bound_ms, bound_by, t_bytes, t_ops = bound_of(args, NOISE_ON)
-    print(f"timing [{card}]: readout kernel {ms:.4f} ms/launch "
-          f"({ms / B:.4f} ms/exposure, B={B}), plain version "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"(bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms)")
-    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by), args
+    # timings at the chunk's shape with the noise on
+    whole = time_readout(ro, args, NOISE_ON, "the synthetic chunk", card)
+    return dict(whole, max_abs_err=max(errs)), args
+
+
+def hold_recorded(ro, recorded, phase: str, label: str) -> list[float]:
+    """The kernel against its plain version on ``recorded`` arguments and
+    flags (``recorded_readout``); returns the max abs errors (DN)."""
+    rec_args, rec_flags = recorded
+    print(f"{phase}: kernel vs plain, {label} (B, NR, W, S) = "
+          f"{tuple(rec_args[3].shape)}, the main path's inputs and flags "
+          f"{rec_flags}")
+    return hold_against_plain(
+        lambda f: ro.exposure_readout(*rec_args, **f),
+        lambda f: ro.exposure_readout_plain(*rec_args, **f), rec_flags,
+        label)
 
 
 def moments(ro, S, W, B) -> None:
@@ -366,7 +464,7 @@ def headline_observation():
     return cfg, Observation(cfg)
 
 
-def phase_main_path(cfg, obs, card: str) -> tuple[int, float]:
+def phase_main_path(cfg, obs, card: str) -> tuple[int, list[float]]:
     import dataclasses
 
     import numpy as np
@@ -374,6 +472,7 @@ def phase_main_path(cfg, obs, card: str) -> tuple[int, float]:
 
     from wayne_tpu_torch.io.ima import read_ima
     from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
     from wayne_tpu_torch.ops.readout import exposure_readout
 
     print("phase 2: the main path")
@@ -383,7 +482,7 @@ def phase_main_path(cfg, obs, card: str) -> tuple[int, float]:
 
     exposure_readout.launches = 0
     t0 = time.time()
-    res = obs.simulate(chunk=chunk)
+    res, recorded = recorded_readout(lambda: obs.simulate(chunk=chunk))
     torch.cuda.synchronize()
     t_first = time.time() - t0
     sim_launches = exposure_readout.launches
@@ -428,7 +527,10 @@ def phase_main_path(cfg, obs, card: str) -> tuple[int, float]:
     wall = time.time() - t0
     print(f"timing [{card}]: simulate() {n} exposures in {wall:.3f} s = "
           f"{n / wall:.2f} exposures/s (first call {t_first:.3f} s)")
-    return launches, n / wall
+
+    errs = hold_recorded(ro, recorded, "phase 2", "main-path chunk")
+    time_readout(ro, *recorded, "the main path's chunk", card)
+    return launches, errs
 
 
 # ---------------------------------------------------------------------------
@@ -504,20 +606,18 @@ def phase_steps(args, card: str) -> dict:
         errs = hold_against_plain(
             lambda f: step_reads(step, None, args, full_frame, f),
             lambda f: step_reads(step, plain, args, full_frame, f),
-            on, args[10][2], name, variants)
+            on, name, variants)
         # one launch in the middle of the ramp, noise on
         k = NR // 2
         _, cums = step_reads(step, None, args, full_frame, on)
         kw = step_args(args, k, cums[:, k - 1].contiguous(), full_frame, True)
-        ms = cuda_ms(lambda: step(**kw, **on), reps=50)
+        ms = cuda_ms(lambda: step(**kw, **on), reps=50, windows=5)
         plain_ms = cuda_ms(lambda: plain(**kw, **on), reps=2, warmup=1)
-        bound_ms, bound_by, t_bytes, t_ops = step_bound_of(kw, on)
+        b = step_bound_of(kw, on)
         print(f"timing [{card}]: {name} kernel {ms:.4f} ms/launch (B={B}, "
-              f"read {k}), plain version {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} (bytes {t_bytes:.4f} ms, "
-              f"operations {t_ops:.4f} ms)")
-        out[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+              f"read {k}), plain version {plain_ms:.3f} ms, {bound_line(b)}; "
+              f"{b['bound_ms'] / ms:.1%} of the bound")
+        out[name] = dict(b, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
     return out
 
 
@@ -631,7 +731,8 @@ def main() -> int:
           f"{time.time() - t0:.1f} s")
     cfg, obs = headline_observation()
     whole, args = phase_kernel(cfg, obs, card)
-    launches, _ = phase_main_path(cfg, obs, card)
+    launches, errs = phase_main_path(cfg, obs, card)
+    whole["max_abs_err"] = max(whole["max_abs_err"], *errs)
     steps = phase_steps(args, card)
     del args
     per_read = phase_per_read(cfg, obs, card)
@@ -642,6 +743,13 @@ def main() -> int:
     rows += [(name, "read_step.cu", line, per_read[name], steps[name])
              for name, line in (("read_step_banded", 598),
                                 ("read_step", 546))]
+    for name, _, _, _, k in rows:
+        print(f"bound [{card}] {name}: {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']} ({k['bound_term']}), the first slices' "
+              f"yardstick {k['old_bound_ms']:.4f} ms by "
+              f"{k['old_bound_by']}; kernel "
+              f"{k['ms']:.4f} ms/launch, {k['bound_ms'] / k['ms']:.1%} of "
+              "the bound")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"wayne_tpu_torch/csrc/{src}",

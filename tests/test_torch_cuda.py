@@ -78,6 +78,70 @@ def test_kernel_matches_plain(card, noise, ipc):
     assert exposure_readout(*args, **kw)[0].equal(got)     # reproducible
 
 
+def _edge_inputs(dev, B, NR, W, S, n_cr, crowd):
+    """Readout inputs at an edge of the kernel's tiling and hit staging:
+    bands at any row, zero, small-lambda and Gaussian background columns,
+    and in every read with hits (all but read 0) a hit pair on one pixel
+    that is hit again in every read, plus ``crowd`` hits packed into one
+    8 x 8 patch (zero charges scattered among them)."""
+    g = torch.Generator().manual_seed(S * 1000 + NR * 10 + n_cr)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    dts = torch.full((B, NR), 2.9)
+    dts[:, 0] = 0.0
+    bands = 800.0 * r(B, NR, W, S) ** 3                  # many small values
+    bands[:, 0] = 0.0
+    y0s = torch.randint(0, S - W + 1, (B, NR), generator=g, dtype=torch.int32)
+    bg = 3.0 * r(B, S, S)
+    bg[:, :, :3] = 0.0
+    cr_pos = torch.randint(0, S, (B, NR, 2, n_cr), generator=g,
+                           dtype=torch.int32)
+    c = min(crowd, n_cr - 2)
+    corner = S // 2 - 4
+    cr_pos[:, :, :, 2:2 + c] = corner + torch.randint(
+        0, 8, (B, NR, 2, c), generator=g, dtype=torch.int32)
+    cr_pos[:, :, :, :2] = S // 3                     # one pixel, every read
+    cr_q = 1000.0 * r(B, NR, n_cr)
+    cr_q[:, :, 5::7] = 0.0
+    cr_q[:, 0] = 0.0
+    args = (torch.tensor([[3, 7], [-1, 9], [5, -5]], dtype=torch.int32)[:B],
+            y0s, dts, bands, bg, 1000.0 + r(S, S),
+            1.0 / (2.5 + 0.02 * r(S, S)),
+            torch.tensor([0.012, 0.012, 0.016])[:, None, None]
+            * (1 + 0.03 * r(3, S, S)), cr_pos, cr_q)
+    return tuple(a.to(dev).contiguous() for a in args) + (
+        (20.0, 78000.0, 2.5, 0.015),)
+
+
+# (B, NR, W, S, n_cr, hits crowded into one patch)
+EDGES = {
+    "S=100": (2, 4, 16, 100, 8, 0),             # not a multiple of a tile
+    "S=136": (2, 4, 32, 136, 8, 0),
+    "NR=1": (2, 1, 32, 64, 8, 0),
+    "W=S": (1, 5, 96, 96, 8, 0),                # the direct image's window
+    "crowded tile": (2, 6, 32, 128, 64, 60),    # every hit in one tile
+    "staging > 48 KB": (1, 5, 32, 64, 1024, 200),
+    "staged in groups": (1, 5, 32, 64, 2048, 200),  # re-staged mid-exposure
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(EDGES))
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("ipc", [False, True])
+def test_kernel_matches_plain_bit_for_bit_at_edges(card, edge, noise, ipc):
+    """Kernel = plain version bit for bit at the edges of its tiling and
+    hit staging: frames that no tile divides, one read, a band as tall as
+    the frame, hits crowded into one tile with repeats on one pixel within
+    a read and across reads, and hit lists whose staging exceeds 48 KB of
+    shared memory or is staged in several groups of reads."""
+    args = _edge_inputs(card, *EDGES[edge])
+    kw = dict(poisson=noise, read_noise=noise, ipc=ipc)
+    got, cum = exposure_readout(*args, **kw)
+    want, cum_w = exposure_readout_plain(*args, **kw)
+    assert torch.equal(got, want) and torch.equal(cum, cum_w)
+    assert exposure_readout(*args, **kw)[0].equal(got)     # reproducible
+
+
 @pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(card):
     args = list(_readout_inputs(card))

@@ -2,17 +2,23 @@
 """Where the time of a visit of the PyTorch/CUDA port goes on one CUDA card.
 
     python3 torch_perf_breakdown.py [--out chiprun_out/perf_breakdown.json]
+        [--parent DIR] [--rounds N]
 
 Runs ``Observation.simulate()`` of the headline visit as ``chip_smoke.py``
 cuts it (``ORBITS`` orbits, ``CHUNK`` exposures per readout launch): once to
 warm up, three times timed with the host clock around a synchronised call,
 then once under ``torch.profiler`` for the device time per kernel and the
-device's idle share over the call. Then times the readout kernel alone at
-the visit's chunk shapes, noise on and off, in two builds taken in turn:
-the port's (``--fmad=false``) and one with fused multiply-add on, and holds
-the second against the plain version as ``chip_smoke.py`` holds the first.
-Prints one JSON object (and writes it to ``--out``) naming the card and its
-power limit.
+device's idle share over the call. Then times each kernel alone at the
+visit's chunk shape — the whole-exposure readout on the inputs the main
+path gives its first chunk and on ``chip_smoke.py``'s synthetic ones,
+noise on and off, and the per-read steps at read 8 — in the port's build
+and the build of another checkout's sources (``--parent``), taken in turn
+``--rounds`` times; each build's share of pixels identical to the plain
+version beside it. Last, counts the SASS instructions that one Philox
+block adds to a kernel (``cuobjdump -sass`` of a probe built with the
+port's flags) and fails unless they are ``chip_smoke.COSTS["philox"]``.
+Prints one JSON object (and writes it to ``--out``) naming the card and
+its power limit.
 """
 
 from __future__ import annotations
@@ -20,11 +26,15 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import torch
 
-from chip_smoke import CHUNK, HERE, card_line, cuda_ms, headline_observation
+from chip_smoke import (
+    CHUNK, COSTS, HERE, NOISE_ON, card_line, cuda_ms, headline_observation,
+    readout_inputs, recorded_readout, step_args, step_reads,
+)
 
 
 def _busy_ms(events) -> tuple[float, list[tuple[float, float]]]:
@@ -44,51 +54,149 @@ def _busy_ms(events) -> tuple[float, list[tuple[float, float]]]:
     return busy / 1e3, spans
 
 
-def _kernel_builds(ro, kin) -> dict:
-    """The readout alone in the port's build and with FMA on, alternated
-    three times, plus the FMA build against the plain version."""
-    fma_flags = ["--fmad=true" if f == "--fmad=false" else f
-                 for f in ro.NVCC_FLAGS]
-    builds = {"fmad_off": ro._library(), "fmad_on": ro.load(
-        ro.build(flags=fma_flags))}
-    modes = {"noise_on": dict(poisson=True, read_noise=True),
-             "noise_off": dict(poisson=False, read_noise=False)}
-    out = {b: {m: [] for m in modes} for b in builds}
+def _build_from(ro, csrc: str) -> str:
+    """The port's build of the kernel sources in ``csrc`` (those of another
+    checkout, e.g. the parent commit unpacked with ``git archive``)."""
+    saved = ro._CSRC
+    ro._CSRC = csrc
     try:
-        for _ in range(3):
+        return ro.build(verbose=True)
+    finally:
+        ro._CSRC = saved
+
+
+def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
+                   rounds: int) -> dict:
+    """Each kernel alone in the port's build and the ``parent`` sources'
+    build, taken in turn ``rounds`` times: the whole-exposure readout on
+    each of ``inputs`` (name -> (args, flags)) with the noise on and off,
+    and the per-read steps on ``steps`` (name -> (wrapper, kwargs)); then
+    each build's share of pixels identical to the plain version."""
+    builds = {"port": ro._library()}
+    if parent:
+        print(f"build parent: {parent}")
+        builds["parent"] = ro.load(_build_from(ro, parent))
+    modes = {"noise_on": {}, "noise_off": dict(poisson=False,
+                                               read_noise=False)}
+    out = {b: {} for b in builds}
+    try:
+        for _ in range(rounds):
             for b, lib in builds.items():
                 ro._lib = lib
-                for m, flags in modes.items():
-                    out[b][m].append(cuda_ms(
-                        lambda: ro.exposure_readout(*kin, **flags), reps=20,
-                        warmup=3))
-        ro._lib = builds["fmad_on"]
-        check = {}
-        for m, flags in modes.items():
-            got, _ = ro.exposure_readout(*kin, **flags)
-            want, _ = ro.exposure_readout_plain(*kin, **flags)
-            diff = (got - want).abs()
-            check[m] = {
-                "max_rel_err": float((diff / want.abs().clamp_min(1e-30))
-                                     .max()),
-                "identical_share": float((got == want).float().mean()),
-                "max_abs_err_dn": float(diff.max())}
-        out["fmad_on_vs_plain"] = check
+                for i, (args, flags) in inputs.items():
+                    for m, extra in modes.items():
+                        kw = dict(flags, **extra)
+                        out[b].setdefault(f"{i}/{m}", []).append(cuda_ms(
+                            lambda: ro.exposure_readout(*args, **kw),
+                            reps=20, warmup=3))
+                for name, (step, kw) in steps.items():
+                    out[b].setdefault(name, []).append(cuda_ms(
+                        lambda: step(**kw), reps=50, warmup=3))
+        for b, lib in builds.items():
+            ro._lib = lib
+            check = {}
+            for i, (args, flags) in inputs.items():
+                for m, extra in modes.items():
+                    kw = dict(flags, **extra)
+                    got, _ = ro.exposure_readout(*args, **kw)
+                    want, _ = ro.exposure_readout_plain(*args, **kw)
+                    check[f"{i}/{m}"] = {
+                        "identical_share": float((got == want).float().mean()),
+                        "max_abs_err_dn": float((got - want).abs().max())}
+            out[f"{b}_vs_plain"] = check
     finally:
-        ro._lib = builds["fmad_off"]
+        ro._lib = builds["port"]
     return out
+
+
+_PHILOX_PROBE = r"""
+#include "detector.cuh"
+// one Philox4x32-10 block, and two in a chain, keyed as the readout keys
+// them (seed words from device memory)
+extern "C" __global__ void philox_1(const int* seed, unsigned* w) {
+  const unsigned t = threadIdx.x;
+  unsigned c[4] = {w[4 * t], t, 0u, 0u};
+  philox4x32_10(seed[0], seed[1], c);
+  for (int i = 0; i < 4; ++i) w[4 * t + i] = c[i];
+}
+extern "C" __global__ void philox_2(const int* seed, unsigned* w) {
+  const unsigned t = threadIdx.x;
+  unsigned c[4] = {w[4 * t], t, 0u, 0u};
+  philox4x32_10(seed[0], seed[1], c);
+  philox4x32_10(seed[0], seed[1], c);
+  for (int i = 0; i < 4; ++i) w[4 * t + i] = c[i];
+}
+"""
+
+
+def opcode_counts(listing: str) -> dict:
+    """Per function of a ``cuobjdump -sass`` listing, a Counter of its
+    instructions' base opcodes (``IMAD`` for ``IMAD.WIDE.U32``), NOPs
+    left out."""
+    import re
+    from collections import Counter
+
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                    r"([A-Z][A-Z0-9_.]*)")
+    out, fn = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            out[fn] = Counter()
+        elif fn and (m := op.search(line)) and m.group(1) != "NOP":
+            out[fn][m.group(1).split(".")[0]] += 1
+    return out
+
+
+def philox_sass(ro) -> dict:
+    """The SASS instructions one Philox4x32-10 block adds to a kernel, as
+    the port's nvcc flags compile ``csrc/detector.cuh``: the probe's
+    two-block kernel less its one-block kernel (the key schedule is
+    shared), in all, IMAD (the FMA-heavy pipe) and LOP3 (the ALU pipe);
+    ``costs`` is (IMAD, LOP3, the rest) as ``chip_smoke.COSTS`` counts
+    it."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    nvcc = ro._nvcc()
+    dump = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cu")
+        cubin = os.path.join(tmp, "probe.cubin")
+        with open(src, "w") as fh:
+            fh.write(_PHILOX_PROBE)
+        subprocess.run([nvcc, *ro.NVCC_FLAGS, "-cubin", "-I", ro._CSRC,
+                        "-o", cubin, src], check=True)
+        ops = opcode_counts(subprocess.run(
+            [dump, "-sass", cubin], check=True, capture_output=True,
+            text=True).stdout)
+    delta = ops["philox_2"]
+    delta.subtract(ops["philox_1"])
+    total = sum(delta.values())
+    costs = (delta["IMAD"], delta["LOP3"],
+             total - delta["IMAD"] - delta["LOP3"])
+    return {"per_block": total, "by_opcode": dict(+delta),
+            "costs": list(costs), "matches_costs": costs == COSTS["philox"]}
 
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=os.path.join(HERE, "chiprun_out",
                                                   "perf_breakdown.json"))
+    ap.add_argument("--rounds", type=int, default=3,
+                    help="rounds of timing every build in turn")
+    ap.add_argument("--parent", default=None,
+                    help="kernel sources (csrc/) of another checkout to time "
+                    "in turns with the port's, e.g. the parent commit's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_perf_breakdown.py needs a CUDA card")
 
     from torch.profiler import ProfilerActivity, profile
 
+    from wayne_tpu_torch.calibration import sample_sequence_times
     from wayne_tpu_torch.ops import readout as ro
 
     cfg, obs = headline_observation()
@@ -120,24 +228,26 @@ def main(argv: list[str] | None = None) -> int:
     readout_ms = sum(v for k, v in per_kernel.items()
                      if "exposure_readout_kernel" in k)
 
-    # the kernel alone at the visit's chunk shapes
+    # the kernel alone at the visit's chunk shape, on the main path's
+    # inputs and on chip_smoke.py's synthetic ones
     st = obs.static
     B, NR, W, S = CHUNK, cfg.nsamp + 1, st.band_px, cfg.subarray
-    g = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
-    kin = (torch.randint(0, 2**31 - 1, (B, 2), generator=g, device=dev,
-                         dtype=torch.int32),
-           torch.zeros((B, NR), dtype=torch.int32, device=dev) + 64,
-           torch.diff(obs.tables.read_times, prepend=obs.tables.read_times[:1]
-                      ).expand(B, NR).contiguous(),
-           500.0 * torch.rand((B, NR, W, S), generator=g, device=dev),
-           1.3 * torch.rand((B, S, S), generator=g, device=dev),
-           obs.tables.bias_map, 1.0 / obs.tables.gain_map,
-           obs.tables.nonlin_coeffs,
-           torch.randint(0, S, (B, NR, 2, st.max_cr_per_read), generator=g,
-                         device=dev, dtype=torch.int32),
-           torch.zeros((B, NR, st.max_cr_per_read), device=dev),
-           obs.tables.readout_consts)
+    inputs = {
+        "main_path": recorded_readout(lambda: obs.simulate(chunk=CHUNK))[1],
+        "synthetic": (readout_inputs(B, NR, W, S, st.max_cr_per_read,
+                                     sample_sequence_times(
+                                         cfg.samp_seq, cfg.nsamp, S)),
+                      NOISE_ON)}
+    # the per-read steps at read 8 of the synthetic chunk, noise on
+    syn, k = inputs["synthetic"][0], NR // 2
+    _, cums = step_reads(ro.read_step_banded, None, syn, False, NOISE_ON)
+    step_on = {f: v for f, v in NOISE_ON.items()
+               if f not in ("with_cr", "ipc")}
+    steps = {
+        "read_step_banded": (ro.read_step_banded, dict(step_args(
+            syn, k, cums[:, k - 1].contiguous(), False, True), **NOISE_ON)),
+        "read_step": (ro.read_step, dict(step_args(
+            syn, k, cums[:, k - 1].contiguous(), True, True), **step_on))}
 
     out = {
         "card": card_line(), "device": torch.cuda.get_device_name(0),
@@ -155,12 +265,19 @@ def main(argv: list[str] | None = None) -> int:
         "readout_share_of_busy": readout_ms / busy_ms if busy_ms else None,
         "kernels_launched": len(spans),
         "top_kernels_ms": top,
-        "readout_alone_ms_per_launch": _kernel_builds(ro, kin),
+        "kernels_alone_ms_per_launch": _kernel_builds(
+            ro, inputs, steps, args.parent, args.rounds),
+        "philox_sass": philox_sass(ro),
     }
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(out, fh, indent=1)
     print(json.dumps(out))
+    if not out["philox_sass"]["matches_costs"]:
+        print(f"a Philox block compiles to {out['philox_sass']['costs']} "
+              f"(IMAD, LOP3, other), chip_smoke.COSTS counts "
+              f"{COSTS['philox']}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -17,8 +17,8 @@
 
 namespace {
 
-constexpr int BX = 32;  // threads per tiled block along x (one warp)
-constexpr int BY = 8;   // threads per tiled block along y
+constexpr int BX = 32;  // threads per block along x (one warp)
+constexpr int BY = 8;   // threads per block along y
 
 // Flag bits, mirrored in wayne_tpu_torch/ops/readout.py.
 enum : int {
@@ -58,8 +58,11 @@ __device__ __forceinline__ void box_muller(uint32_t b0, uint32_t b1,
                                            float* z0, float* z1) {
   const float r = sqrtf(-2.0f * logf(uniform24(b0)));
   const float theta = 6.2831853071795862f * uniform24(b1);
-  *z0 = r * cosf(theta);
-  *z1 = r * sinf(theta);
+  // one range reduction for both; the same bits as cosf and sinf
+  float sn, cs;
+  sincosf(theta, &sn, &cs);
+  *z0 = r * cs;
+  *z1 = r * sn;
 }
 
 // The (background z, read-noise z) pair of a pixel and read.
@@ -117,124 +120,6 @@ __device__ __forceinline__ float nonlin(float sig, float fw, float inv_fw,
   const float s = fminf(sig, fw);
   const float q = s * inv_fw;
   return s * (1.0f - ((c3 * q + c2) * q + c1) * q);
-}
-
-// Where a thread of a tiled block sits: tiles of (BX - 2h) x (BY - 2h)
-// pixels with an h-pixel halo (h = 1 for IPC, else 0); blockIdx.z is the
-// exposure.
-struct TiledPixel {
-  int ox, oy;        // pixel of thread (0, 0)
-  int x, y;
-  bool valid;        // inside the frame
-  bool interior;     // inside the frame and not halo: owns its outputs
-  size_t pidx;       // y * S + x (0 when not valid)
-};
-
-__device__ __forceinline__ TiledPixel tiled_pixel(int S, int h) {
-  TiledPixel p;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  p.ox = blockIdx.x * (BX - 2 * h) - h;
-  p.oy = blockIdx.y * (BY - 2 * h) - h;
-  p.x = p.ox + tx;
-  p.y = p.oy + ty;
-  p.valid = p.x >= 0 && p.x < S && p.y >= 0 && p.y < S;
-  p.interior = p.valid && tx >= h && tx < BX - h && ty >= h && ty < BY - h;
-  p.pidx = p.valid ? static_cast<size_t>(p.y) * S + p.x : 0;
-  return p;
-}
-
-// Grid of a tiled kernel over a chunk of B exposures.
-inline dim3 tiled_grid(int S, int B, int flags) {
-  const int h = (flags & F_IPC) ? 1 : 0;
-  const int tw = BX - 2 * h, th = BY - 2 * h;
-  return dim3((S + tw - 1) / tw, (S + th - 1) / th, B);
-}
-
-// Dynamic shared memory of a tiled kernel: the compacted hit list and the
-// IPC tile.
-inline size_t tiled_smem(int n_cr) {
-  return static_cast<size_t>(n_cr) * 12 + BX * BY * 4;
-}
-
-// Shared-memory views of a tiled block.
-struct TileShared {
-  int* hit_y;
-  int* hit_x;
-  float* hit_q;
-  float* tile;       // BX * BY sensed signals (IPC)
-};
-
-__device__ __forceinline__ TileShared tile_shared(unsigned char* raw,
-                                                  int n_cr) {
-  TileShared s;
-  s.hit_y = reinterpret_cast<int*>(raw);
-  s.hit_x = s.hit_y + n_cr;
-  s.hit_q = reinterpret_cast<float*>(s.hit_x + n_cr);
-  s.tile = s.hit_q + n_cr;
-  return s;
-}
-
-// Cosmic-ray hits of one read's list (py, px, pq: n_cr entries, charge 0
-// beyond the hit count). Called by every thread of the block: warp 0
-// compacts, in list order, the hits inside this block's tile into shared
-// memory, then each thread adds the charges whose (y, x) is its pixel, so
-// a hit lands exactly once whatever the tiling and two hits on one pixel
-// add in list order.
-__device__ __forceinline__ float add_cr_hits(float cum, const TiledPixel& p,
-                                             const int* py, const int* px,
-                                             const float* pq, int n_cr,
-                                             const TileShared& s,
-                                             int* n_hits) {
-  const int tx = threadIdx.x;
-  __syncthreads();  // the previous read's hit list is consumed
-  if (threadIdx.y == 0) {
-    int count = 0;
-    for (int base = 0; base < n_cr; base += 32) {
-      const int i = base + tx;
-      int hy = 0, hx = 0;
-      float q = 0.0f;
-      bool hit = false;
-      if (i < n_cr) {
-        hy = py[i]; hx = px[i]; q = pq[i];
-        hit = q != 0.0f && hy >= p.oy && hy < p.oy + BY && hx >= p.ox &&
-              hx < p.ox + BX;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      if (hit) {
-        const int slot = count + __popc(mask & ((1u << tx) - 1u));
-        s.hit_y[slot] = hy; s.hit_x[slot] = hx; s.hit_q[slot] = q;
-      }
-      count += __popc(mask);
-    }
-    if (tx == 0) *n_hits = count;
-  }
-  __syncthreads();
-  if (p.valid) {
-    for (int i = 0; i < *n_hits; ++i)
-      if (s.hit_y[i] == p.y && s.hit_x[i] == p.x) cum = cum + s.hit_q[i];
-  }
-  return cum;
-}
-
-// Inter-pixel capacitance, kernel [[0,a,0],[a,1-4a,a],[0,a,0]] with a zero
-// boundary. Called by every thread of a block with a one-pixel halo: the
-// sensed signals meet in shared memory and interior threads couple their
-// four neighbours.
-__device__ __forceinline__ float ipc_couple(float sig, const TiledPixel& p,
-                                            float alpha, float* tile) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  tile[ty * BX + tx] = p.valid ? sig : 0.0f;  // zero outside the frame
-  __syncthreads();
-  if (p.interior) {
-    const float up = tile[(ty - 1) * BX + tx];
-    const float down = tile[(ty + 1) * BX + tx];
-    const float left = tile[ty * BX + tx - 1];
-    const float right = tile[ty * BX + tx + 1];
-    const float one_m4a = 1.0f - 4.0f * alpha;
-    sig = sig * one_m4a + alpha * (((up + down) + left) + right);
-  }
-  __syncthreads();  // the tile is rewritten next read
-  return sig;
 }
 
 }  // namespace

@@ -25,11 +25,12 @@
 // small-lambda uniform, with k the emitted read index. So the per-read
 // path draws exactly the numbers the whole-exposure path draws.
 //
-// Design. B2 is one read of the whole-exposure kernel's design: one thread
-// per pixel, grid (column tiles, row tiles, exposures), the hit list
+// Design. B2 is one read of the whole-exposure kernel's chain: one thread
+// per pixel, grid (column tiles, row tiles, exposures), the read's hit list
 // compacted by warp 0 in list order, IPC through a one-pixel halo whose
-// threads recompute their pixel's charge exactly (detector.cuh). Unlike
-// the whole-exposure kernel the charge enters from and leaves to device
+// threads recompute their pixel's charge exactly (the tiling helpers
+// below). Unlike the whole-exposure kernel the charge enters from and
+// leaves to device
 // memory, so cum_out must not alias cum_in (a halo thread reads a pixel
 // that another block writes). The band may start at any row y0: nothing
 // assumes the TPU's 8-row alignment. B3 is a pure per-pixel pass: a flat
@@ -39,10 +40,10 @@
 // traffic of B2 is cum in and out, dn and the background plane (4 x 8.4 MB),
 // the five shared planes (bias, inv_gain, c1..c3, 5.2 MB) and the band;
 // B3 reads the add frame (8.4 MB) instead of the band. ~38-46 MB at
-// 3.35 TB/s is ~11-14 us. The operations per pixel are one Philox block,
-// Box-Muller, the sampler and the readout chain (~135, ~8.5 us for the
-// chunk at the 67 T/s fp32 lane rate). Bytes bind, narrowly; chip_smoke.py
-// computes both bounds from each run's inputs.
+// 3.35 TB/s is ~11-14 us. The operations per pixel are one Philox block
+// (32-bit integer work, issued at half the fp32 rate), Box-Muller, the
+// sampler and the readout chain. chip_smoke.py computes both bounds from
+// each run's inputs, counting each operation at the rate of its pipe.
 //
 // Built by wayne_tpu_torch/ops/readout.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -53,6 +54,124 @@
 namespace {
 
 constexpr int FLAT_THREADS = 256;  // threads per block of the flat kernel
+
+// Where a thread of a tiled block sits: tiles of (BX - 2h) x (BY - 2h)
+// pixels with an h-pixel halo (h = 1 for IPC, else 0); blockIdx.z is the
+// exposure.
+struct TiledPixel {
+  int ox, oy;        // pixel of thread (0, 0)
+  int x, y;
+  bool valid;        // inside the frame
+  bool interior;     // inside the frame and not halo: owns its outputs
+  size_t pidx;       // y * S + x (0 when not valid)
+};
+
+__device__ __forceinline__ TiledPixel tiled_pixel(int S, int h) {
+  TiledPixel p;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  p.ox = blockIdx.x * (BX - 2 * h) - h;
+  p.oy = blockIdx.y * (BY - 2 * h) - h;
+  p.x = p.ox + tx;
+  p.y = p.oy + ty;
+  p.valid = p.x >= 0 && p.x < S && p.y >= 0 && p.y < S;
+  p.interior = p.valid && tx >= h && tx < BX - h && ty >= h && ty < BY - h;
+  p.pidx = p.valid ? static_cast<size_t>(p.y) * S + p.x : 0;
+  return p;
+}
+
+// Grid of a tiled kernel over a chunk of B exposures.
+inline dim3 tiled_grid(int S, int B, int flags) {
+  const int h = (flags & F_IPC) ? 1 : 0;
+  const int tw = BX - 2 * h, th = BY - 2 * h;
+  return dim3((S + tw - 1) / tw, (S + th - 1) / th, B);
+}
+
+// Dynamic shared memory of a tiled kernel: the compacted hit list and the
+// IPC tile.
+inline size_t tiled_smem(int n_cr) {
+  return static_cast<size_t>(n_cr) * 12 + BX * BY * 4;
+}
+
+// Shared-memory views of a tiled block.
+struct TileShared {
+  int* hit_y;
+  int* hit_x;
+  float* hit_q;
+  float* tile;       // BX * BY sensed signals (IPC)
+};
+
+__device__ __forceinline__ TileShared tile_shared(unsigned char* raw,
+                                                  int n_cr) {
+  TileShared s;
+  s.hit_y = reinterpret_cast<int*>(raw);
+  s.hit_x = s.hit_y + n_cr;
+  s.hit_q = reinterpret_cast<float*>(s.hit_x + n_cr);
+  s.tile = s.hit_q + n_cr;
+  return s;
+}
+
+// Cosmic-ray hits of one read's list (py, px, pq: n_cr entries, charge 0
+// beyond the hit count). Called by every thread of the block: warp 0
+// compacts, in list order, the hits inside this block's tile into shared
+// memory, then each thread adds the charges whose (y, x) is its pixel, so
+// a hit lands exactly once whatever the tiling and two hits on one pixel
+// add in list order.
+__device__ __forceinline__ float add_cr_hits(float cum, const TiledPixel& p,
+                                             const int* py, const int* px,
+                                             const float* pq, int n_cr,
+                                             const TileShared& s,
+                                             int* n_hits) {
+  const int tx = threadIdx.x;
+  __syncthreads();  // the previous read's hit list is consumed
+  if (threadIdx.y == 0) {
+    int count = 0;
+    for (int base = 0; base < n_cr; base += 32) {
+      const int i = base + tx;
+      int hy = 0, hx = 0;
+      float q = 0.0f;
+      bool hit = false;
+      if (i < n_cr) {
+        hy = py[i]; hx = px[i]; q = pq[i];
+        hit = q != 0.0f && hy >= p.oy && hy < p.oy + BY && hx >= p.ox &&
+              hx < p.ox + BX;
+      }
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        const int slot = count + __popc(mask & ((1u << tx) - 1u));
+        s.hit_y[slot] = hy; s.hit_x[slot] = hx; s.hit_q[slot] = q;
+      }
+      count += __popc(mask);
+    }
+    if (tx == 0) *n_hits = count;
+  }
+  __syncthreads();
+  if (p.valid) {
+    for (int i = 0; i < *n_hits; ++i)
+      if (s.hit_y[i] == p.y && s.hit_x[i] == p.x) cum = cum + s.hit_q[i];
+  }
+  return cum;
+}
+
+// Inter-pixel capacitance, kernel [[0,a,0],[a,1-4a,a],[0,a,0]] with a zero
+// boundary. Called by every thread of a block with a one-pixel halo: the
+// sensed signals meet in shared memory and interior threads couple their
+// four neighbours.
+__device__ __forceinline__ float ipc_couple(float sig, const TiledPixel& p,
+                                            float alpha, float* tile) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  tile[ty * BX + tx] = p.valid ? sig : 0.0f;  // zero outside the frame
+  __syncthreads();
+  if (p.interior) {
+    const float up = tile[(ty - 1) * BX + tx];
+    const float down = tile[(ty + 1) * BX + tx];
+    const float left = tile[ty * BX + tx - 1];
+    const float right = tile[ty * BX + tx + 1];
+    const float one_m4a = 1.0f - 4.0f * alpha;
+    sig = sig * one_m4a + alpha * (((up + down) + left) + right);
+  }
+  __syncthreads();  // the tile is rewritten next read
+  return sig;
+}
 
 struct StepArgs {
   const int* seed;       // (B, 2)
