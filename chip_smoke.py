@@ -23,17 +23,19 @@ process per source, in parallel, linked into one library) and then:
    readout call are recorded on the way, and the kernel is then held
    against its plain version on them as in 1, and timed;
 3. holds the per-read kernels against their plain versions, read by read
-   over the chunk's 16 reads: the banded step at W = 32 and the full-frame
-   step at W = S, with the bars of phase 1;
+   over the chunk's 16 reads: the banded step at W = 32 on the expected
+   band (its plain reference samples the band with ``sample_band`` first)
+   and the full-frame step at W = S, with the bars of phase 1;
 4. drives the per-read path (``fused_reads=False``) of the same visit:
    ``simulate()`` through the banded step (16 launches per chunk, none of
    the whole-exposure kernel), its reads against the whole-exposure
    route's, then one chunk with ``band_px: 0`` through the full-frame step
-   (16 launches);
-5. times each kernel, its plain version and ``simulate()`` on both routes,
-   and prints each kernel's bound (the bytes over the memory rate against
-   the operations over the rates of their pipes, see ``_bound``) beside the
-   yardstick of the port's first slices.
+   (16 launches), each beside the whole-exposure route's rate;
+5. times each kernel L2-warm and L2-cold (``device_ms``; the JSON line
+   takes the cold time), its plain version and ``simulate()`` on both
+   routes, and prints each kernel's bound (the bytes over the memory rate
+   against the operations over the rates of their pipes, see ``_bound``)
+   beside the yardstick of the port's first slices.
 
 Prints the card's name and power limit first, a JSON line with the
 kernels' numbers before the last line, and last
@@ -57,6 +59,7 @@ ORBITS = 1                  # the headline visit cut to one orbit
 CHUNK = 8                   # exposures per readout launch
 H100_BYTES_S = 3.35e12      # HBM3 rate (NVIDIA data sheet, H100 SXM)
 H100_SMS, H100_CLOCK_HZ = 132, 1.98e9
+FLUSH_BYTES = 128 << 20     # read before each L2-cold launch (L2: 50 MB)
 # Lanes per clock per SM for compute capability 9.0 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput): 32-bit integer add, multiply,
 # shift and logic at 64; fp32 add and multiply at 128, which is also the
@@ -116,7 +119,9 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2, windows: int = 1) -> float:
     """Time per call of ``fn`` on the card (CUDA events around ``reps``
-    calls), the median of ``windows`` such windows."""
+    calls, enqueued by the host as it goes), the median of ``windows`` such
+    windows. Where the host takes longer to enqueue a call than the card
+    to run it, this is the host's time: see ``kernel_times``."""
     import statistics
 
     import torch
@@ -134,6 +139,67 @@ def cuda_ms(fn, reps: int, warmup: int = 2, windows: int = 1) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int, cold: bool) -> float:
+    """Median time of one launch of ``fn`` on the card: each launch between
+    its own pair of CUDA events, all enqueued behind a sleeping kernel so
+    that the host's launch overhead never paces the card (the sleep grows
+    until the host has enqueued every launch before the card wakes).
+    L2-warm: the launches back to back on the same tensors; L2-cold
+    (``cold``): each launch after a read of FLUSH_BYTES, which evicts its
+    inputs from the card's 50 MB L2 and leaves no dirty lines behind.
+    Fails if the host cannot get ahead of a sleep of a billion cycles."""
+    import statistics
+
+    import torch
+    flush = torch.zeros(FLUSH_BYTES // 4, device="cuda") if cold else None
+    fn()
+    for cycles in (10**7, 10**8, 10**9):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        awake = torch.cuda.Event()
+        awake.record()
+        events = []
+        for _ in range(reps):
+            if cold:
+                flush.sum()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            events.append((start, end))
+        ahead = not awake.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return statistics.median(s.elapsed_time(e) for s, e in events)
+    raise RuntimeError(f"the host did not enqueue {reps} launches ahead of "
+                       f"a sleep of {cycles} cycles")
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """``fn``'s time per launch L2-warm and L2-cold (``device_ms``), beside
+    the earlier slices' host-paced figure (``cuda_ms``, 5 windows) and the
+    host's time to enqueue one call."""
+    import torch
+    warm = device_ms(fn, reps, cold=False)
+    cold = device_ms(fn, reps, cold=True)
+    paced = cuda_ms(fn, reps, windows=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dict(warm_ms=warm, cold_ms=cold, paced_ms=paced, host_ms=host,
+                ms=cold)
+
+
+def times_line(t: dict) -> str:
+    return (f"L2-warm {t['warm_ms']:.4f} ms/launch, L2-cold "
+            f"{t['cold_ms']:.4f} ms/launch (host-paced {t['paced_ms']:.4f}, "
+            f"host enqueue {t['host_ms']:.4f} ms/call)")
 
 
 # ---------------------------------------------------------------------------
@@ -234,26 +300,38 @@ def bound_of(args, flags) -> dict:
                      cr_q) + (B * NR * S * S + B * S * S) * 4  # reads + cum
     work = _read_work(bg[:, None] * dts[:, :, None, None], B * NR * S * S,
                       cr_q if flags.get("with_cr", True) else None, flags)
-    if flags["poisson"]:                    # the band, sampled in-kernel
-        gauss = int((bands >= 3).sum())
-        small = int(((bands > 0) & (bands < 3)).sum())
-        for piece in ("philox", "box_muller", "sampler"):
-            work[piece] += gauss
-        work["philox"] += small
-        work["small_lam"] += small
+    if flags["poisson"]:
+        _add_band_work(work, bands)
     return _bound(nbytes, work)
 
 
+def _add_band_work(work: dict, bands) -> None:
+    """Adds to ``work`` the in-kernel Poisson draw of the expected
+    ``bands``: a Philox block, Box-Muller and the sampler where lambda >= 3,
+    a Philox block and the exact sum where 0 < lambda < 3, nothing where
+    lambda = 0."""
+    gauss = int((bands >= 3).sum())
+    small = int(((bands > 0) & (bands < 3)).sum())
+    for piece in ("philox", "box_muller", "sampler"):
+        work[piece] += gauss
+    work["philox"] += small
+    work["small_lam"] += small
+
+
 def step_bound_of(kw, flags) -> dict:
-    """Least time for one per-read step on its keyword arguments ``kw``
-    (the band or add frame comes sampled: no sampling of it is counted)."""
+    """Least time for one per-read step on its keyword arguments ``kw``:
+    the banded step (``kw`` has a band) draws its band in-kernel when
+    ``poisson``; the full-frame step's add frame comes sampled."""
     import torch
     tensors = [v for v in kw.values() if isinstance(v, torch.Tensor)]
     B, S, _ = kw["cum"].shape
     nbytes = _nbytes(*tensors) + 2 * B * S * S * 4          # cum out + dn
     cr_q = kw.get("cr_q") if flags.get("with_cr", True) else None
-    return _bound(nbytes, _read_work(kw["bg_rate"] * kw["dt"][:, None, None],
-                                     B * S * S, cr_q, flags))
+    work = _read_work(kw["bg_rate"] * kw["dt"][:, None, None], B * S * S,
+                      cr_q, flags)
+    if "band" in kw and flags["poisson"]:
+        _add_band_work(work, kw["band"])
+    return _bound(nbytes, work)
 
 
 def bound_line(b: dict) -> str:
@@ -342,18 +420,18 @@ def time_readout(ro, args, flags, label: str, card: str) -> dict:
     ``args``, beside its bound and the share of warps in the exact
     small-lambda branch."""
     B = args[3].shape[0]
-    ms = cuda_ms(lambda: ro.exposure_readout(*args, **flags), reps=20,
-                 windows=5)
+    t = kernel_times(lambda: ro.exposure_readout(*args, **flags), reps=20)
     plain_ms = cuda_ms(lambda: ro.exposure_readout_plain(*args, **flags),
                        reps=2, warmup=1)
     b = bound_of(args, flags)
-    print(f"timing [{card}]: readout kernel on {label} {ms:.4f} ms/launch "
-          f"({ms / B:.4f} ms/exposure, B={B}), plain version "
+    ms = t["ms"]
+    print(f"timing [{card}]: readout kernel on {label} {times_line(t)} "
+          f"({ms / B:.4f} ms/exposure L2-cold, B={B}), plain version "
           f"{plain_ms:.3f} ms, {bound_line(b)}; {b['bound_ms'] / ms:.1%} of "
-          f"the bound ({b['old_bound_ms'] / ms:.1%} of the old); "
+          f"the bound L2-cold ({b['old_bound_ms'] / ms:.1%} of the old); "
           f"{small_lambda_warp_share(args):.2%} of warp-reads take the "
           "exact small-lambda branch")
-    return dict(b, ms=ms, plain_ms=plain_ms)
+    return dict(b, **t, plain_ms=plain_ms)
 
 
 def phase_kernel(cfg, obs, card: str) -> tuple[dict, tuple]:
@@ -539,10 +617,10 @@ def phase_main_path(cfg, obs, card: str) -> tuple[int, list[float]]:
 
 def step_args(args, k: int, cum, full_frame: bool, poisson: bool) -> dict:
     """A per-read step's arguments for read k of the phase-1 chunk inputs,
-    built as the per-read path builds them: the banded step takes the band
-    at its row (sampled when ``poisson``); the full-frame step takes the
-    band placed in a zero frame and sampled, plus the read's hits in list
-    order."""
+    built as the per-read path builds them: the banded step takes the
+    expected band at its row (it samples the band itself); the full-frame
+    step takes the band placed in a zero frame and sampled when
+    ``poisson``, plus the read's hits in list order."""
     import torch
 
     from wayne_tpu_torch.ops.readout import add_hits, sample_band
@@ -554,8 +632,6 @@ def step_args(args, k: int, cum, full_frame: bool, poisson: bool) -> dict:
               consts=consts)
     y0, band = y0s[:, k].contiguous(), bands[:, k]
     if not full_frame:
-        if poisson:
-            band = sample_band(seed, k, y0, band)
         return dict(kw, y0=y0, band=band.contiguous(),
                     cr_pos=cr_pos[:, k].contiguous(),
                     cr_q=cr_q[:, k].contiguous())
@@ -565,6 +641,18 @@ def step_args(args, k: int, cum, full_frame: bool, poisson: bool) -> dict:
     if poisson:
         frame = sample_band(seed, k, torch.zeros_like(y0), frame)
     return dict(kw, add=add_hits(frame, cr_pos[:, k], cr_q[:, k]))
+
+
+def banded_reference(**kw):
+    """The banded step's plain reference: the expected band sampled
+    (``sample_band``) when ``poisson``, then ``read_step_banded_plain``."""
+    from wayne_tpu_torch.ops.readout import (
+        read_step_banded_plain, sample_band,
+    )
+    if kw["poisson"]:
+        kw = dict(kw, band=sample_band(kw["seed"], kw["read"], kw["y0"],
+                                       kw["band"]))
+    return read_step_banded_plain(**kw)
 
 
 def step_reads(step, plain, args, full_frame: bool, flags: dict):
@@ -597,7 +685,7 @@ def phase_steps(args, card: str) -> dict:
     out = {}
     for name, step, plain, full_frame, on, variants in (
             ("read_step_banded", ro.read_step_banded,
-             ro.read_step_banded_plain, False, NOISE_ON,
+             banded_reference, False, NOISE_ON,
              ({"ipc": False}, {"ipc": True})),
             ("read_step", ro.read_step, ro.read_step_plain, True, step_on,
              ({},))):
@@ -611,13 +699,19 @@ def phase_steps(args, card: str) -> dict:
         k = NR // 2
         _, cums = step_reads(step, None, args, full_frame, on)
         kw = step_args(args, k, cums[:, k - 1].contiguous(), full_frame, True)
-        ms = cuda_ms(lambda: step(**kw, **on), reps=50, windows=5)
+        for extra in variants[1:]:             # IPC on: timed, not listed
+            f = dict(on, **extra)
+            t = kernel_times(lambda: step(**kw, **f), reps=50)
+            print(f"timing [{card}]: {name} kernel with {extra} "
+                  f"{times_line(t)}; {bound_line(step_bound_of(kw, f))}")
+        t = kernel_times(lambda: step(**kw, **on), reps=50)
         plain_ms = cuda_ms(lambda: plain(**kw, **on), reps=2, warmup=1)
         b = step_bound_of(kw, on)
-        print(f"timing [{card}]: {name} kernel {ms:.4f} ms/launch (B={B}, "
+        print(f"timing [{card}]: {name} kernel {times_line(t)} (B={B}, "
               f"read {k}), plain version {plain_ms:.3f} ms, {bound_line(b)}; "
-              f"{b['bound_ms'] / ms:.1%} of the bound")
-        out[name] = dict(b, max_abs_err=max(errs), ms=ms, plain_ms=plain_ms)
+              f"{b['bound_ms'] / t['cold_ms']:.1%} of the bound L2-cold, "
+              f"{b['bound_ms'] / t['warm_ms']:.1%} L2-warm")
+        out[name] = dict(b, **t, max_abs_err=max(errs), plain_ms=plain_ms)
     return out
 
 
@@ -656,15 +750,18 @@ def phase_per_read(cfg, obs, card: str) -> dict:
               f"{label}: every exposure's frame-sum ramp is monotone")
 
     def same_as_fused(o, reads, label):
+        """The reads against the whole-exposure route's; returns that
+        route's time for the same simulate()."""
         static = o.static
         o.static = dataclasses.replace(static, fused_reads=True)
         try:
-            fused = o.simulate(chunk=CHUNK).reads_dn
+            fused, wall, _ = drive(o)
         finally:
             o.static = static
         same = float((reads == fused).float().mean())
         check(same >= 0.999, f"{label}: {same * 100:.4f}% of pixels "
               "identical to the whole-exposure route's (>= 99.9%)")
+        return wall
 
     print("phase 4: the per-read path (fused_reads=False)")
     n = obs.plan.n_exposures
@@ -680,7 +777,7 @@ def phase_per_read(cfg, obs, card: str) -> dict:
               "full-frame launches")
         banded_launches = b2
         _, wall, _ = drive(obs)
-        same_as_fused(obs, reads, "simulate(), per-read")
+        wall_f = same_as_fused(obs, reads, "simulate(), per-read")
     finally:
         obs.static = fused_static
     del reads
@@ -697,12 +794,14 @@ def phase_per_read(cfg, obs, card: str) -> dict:
           f"reads x 1 chunk; {b1} whole-exposure and {b2} banded-step "
           "launches")
     _, wall0, _ = drive(one)
-    same_as_fused(one, reads0, "band off, per-read")
+    wall0_f = same_as_fused(one, reads0, "band off, per-read")
+    n0 = one.plan.n_exposures
     print(f"timing [{card}]: simulate() per-read {n} exposures in "
           f"{wall:.3f} s = {n / wall:.2f} exposures/s (first call "
-          f"{t_first:.3f} s); band off, per-read {one.plan.n_exposures} "
-          f"exposures in {wall0:.3f} s = {one.plan.n_exposures / wall0:.2f} "
-          f"exposures/s (first call {t0_first:.3f} s)")
+          f"{t_first:.3f} s), whole-exposure {n / wall_f:.2f} exposures/s; "
+          f"band off, per-read {n0} exposures in {wall0:.3f} s = "
+          f"{n0 / wall0:.2f} exposures/s (first call {t0_first:.3f} s), "
+          f"whole-exposure {n0 / wall0_f:.2f} exposures/s")
     return dict(read_step_banded=banded_launches, read_step=b3)
 
 
@@ -747,9 +846,9 @@ def main() -> int:
         print(f"bound [{card}] {name}: {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']} ({k['bound_term']}), the first slices' "
               f"yardstick {k['old_bound_ms']:.4f} ms by "
-              f"{k['old_bound_by']}; kernel "
-              f"{k['ms']:.4f} ms/launch, {k['bound_ms'] / k['ms']:.1%} of "
-              "the bound")
+              f"{k['old_bound_by']}; kernel L2-warm {k['warm_ms']:.4f}, "
+              f"L2-cold {k['ms']:.4f} ms/launch, "
+              f"{k['bound_ms'] / k['ms']:.1%} of the bound L2-cold")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"wayne_tpu_torch/csrc/{src}",

@@ -103,11 +103,10 @@ def test_whole_exposure_bound_matches_a_hand_count(case):
                   _expected(NBYTES, work))
 
 
-@pytest.mark.parametrize("banded", [True, False])
-def test_step_bound_matches_a_hand_count(banded):
-    """One read (read 1) of the per-read steps: 16 pixels, each with a
-    normal; background 8 Gaussian, 4 small, 4 zero. The band (or the add
-    frame) comes sampled, so none of its sampling counts."""
+def _step_kw(banded):
+    """Read 1's keyword arguments for a per-read step, and their bytes:
+    the banded step's expected band row [0, 2, 50, 50] and hits, or the
+    full-frame step's add frame."""
     args = _args(ZERO_SMALL_GAUSS, [0.0, 2.0, 50.0, 50.0])
     seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q, consts = args
     kw = dict(seed=seed, read=1, dt=dts[:, 1].contiguous(),
@@ -115,20 +114,47 @@ def test_step_bound_matches_a_hand_count(banded):
               inv_gain=inv_gain, nl_coeffs=nl, consts=consts)
     # seed 8, dt 4, cum 64, planes 64 + 64 + 64 + 192, cum out + dn 128
     nbytes = 8 + 4 + 64 + 64 + 64 + 64 + 192 + 128
-    work = dict(philox=16 + 4, box_muller=16, sampler=8, small_lam=4,
-                readout=16, cr=0)
     if banded:
         kw.update(y0=y0s[:, 1].contiguous(), band=bands[:, 1].contiguous(),
                   cr_pos=cr_pos[:, 1].contiguous(),
                   cr_q=cr_q[:, 1].contiguous())
-        nbytes += 4 + 16 + 24 + 12
-        work["cr"] = 2
+        return kw, nbytes + 4 + 16 + 24 + 12
+    kw["add"] = torch.zeros((1, S, S))
+    return kw, nbytes + 64
+
+
+@pytest.mark.parametrize("banded", [True, False])
+def test_step_bound_matches_a_hand_count(banded):
+    """One read (read 1) of the per-read steps: 16 pixels, each with a
+    normal; background 8 Gaussian, 4 small, 4 zero. The banded step draws
+    its expected band in the kernel: 2 Gaussian values (Philox, Box-Muller,
+    sampler), 1 small (Philox, the exact sum), 1 zero; the full-frame
+    step's add frame comes sampled, so none of its sampling counts."""
+    kw, nbytes = _step_kw(banded)
+    work = dict(philox=16 + 4, box_muller=16, sampler=8, small_lam=4,
+                readout=16, cr=0)
+    if banded:
+        for piece, n in (("philox", 2 + 1), ("box_muller", 2),
+                         ("sampler", 2), ("small_lam", 1), ("cr", 2)):
+            work[piece] += n
         flags = cs.NOISE_ON
     else:
-        kw["add"] = torch.zeros((1, S, S))
-        nbytes += 64
         flags = {k: v for k, v in cs.NOISE_ON.items()
                  if k not in ("with_cr", "ipc")}
+    _assert_bound(cs.step_bound_of(kw, flags), _expected(nbytes, work))
+
+
+@pytest.mark.parametrize("read_noise", [False, True])
+def test_banded_step_bound_without_poisson_adds_the_band_as_given(
+        read_noise):
+    """With Poisson off the banded step adds its band as given: neither
+    the band nor the background is sampled, and normals are drawn only for
+    the read noise."""
+    kw, nbytes = _step_kw(True)
+    flags = dict(cs.NOISE_ON, poisson=False, read_noise=read_noise)
+    n = 16 if read_noise else 0
+    work = dict(philox=n, box_muller=n, sampler=0, small_lam=0, readout=16,
+                cr=2)
     _assert_bound(cs.step_bound_of(kw, flags), _expected(nbytes, work))
 
 
@@ -180,6 +206,28 @@ LISTING = """
         /*0000*/                   LOP3.LUT R4, R3, R5, R6, 0x96, !PT ;
         /*0010*/                   EXIT ;
 """
+
+
+PTXAS_LOG = """
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123read_step_banded_kernelENS_8StepArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_123read_step_banded_kernelENS_8StepArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, 544 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_116read_step_kernelENS_8StepArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_116read_step_kernelENS_8StepArgsE
+    32 bytes stack frame, 28 bytes spill stores, 24 bytes spill loads
+ptxas info    : Used 40 registers, 544 bytes cmem[0]
+"""
+
+
+def test_registers_and_spills_of_a_ptxas_log():
+    import torch_perf_breakdown as tpb
+
+    assert tpb.parse_ptxas(PTXAS_LOG) == {
+        "read_step_banded_kernel": {"registers": 64, "spill_stores": 0,
+                                    "spill_loads": 0},
+        "read_step_kernel": {"registers": 40, "spill_stores": 28,
+                             "spill_loads": 24}}
 
 
 def test_opcode_counts_of_a_sass_listing():

@@ -20,7 +20,7 @@ from wayne_tpu_torch.io.ima import read_ima
 from wayne_tpu_torch.observation import Observation
 from wayne_tpu_torch.ops.readout import (
     exposure_readout, exposure_readout_plain, read_step, read_step_banded,
-    read_step_banded_plain, read_step_plain,
+    read_step_banded_plain, read_step_plain, sample_band,
 )
 
 torch.set_num_threads(1)
@@ -155,7 +155,7 @@ def test_kernel_rejects_bad_inputs(card):
 
 
 def _step_inputs(dev, B=3, W=32, S=128, n_cr=6):
-    """One read's inputs: charge, a sampled band at unaligned rows, the
+    """One read's inputs: charge, an expected band at unaligned rows, the
     full-frame add, hits (two on one pixel) and the shared planes."""
     g = torch.Generator().manual_seed(4)
     r = lambda *shape: torch.rand(shape, generator=g)
@@ -189,15 +189,26 @@ def _full_frame_args(t):
             if k not in ("y0", "band", "cr_pos", "cr_q")}
 
 
+def _banded_reference(**kw):
+    """The banded step's plain reference: the expected band sampled when
+    ``poisson``, then the plain step."""
+    if kw["poisson"]:
+        kw = dict(kw, band=sample_band(kw["seed"], kw["read"], kw["y0"],
+                                       kw["band"]))
+    return read_step_banded_plain(**kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("noise", [False, True])
 @pytest.mark.parametrize("ipc", [False, True])
 def test_banded_step_matches_plain(card, noise, ipc):
-    """The banded read step's kernel = its plain version on the card."""
+    """The banded read step's kernel = its plain version on the card (the
+    expected band drawn in the kernel; sampled by ``sample_band`` for the
+    plain version)."""
     args = _banded_args(_step_inputs(card))
     kw = dict(poisson=noise, read_noise=noise, ipc=ipc)
     cum, dn = read_step_banded(read=7, **args, **kw)
-    cum_w, dn_w = read_step_banded_plain(read=7, **args, **kw)
+    cum_w, dn_w = _banded_reference(read=7, **args, **kw)
     torch.testing.assert_close(dn, dn_w, rtol=1e-5, atol=0)
     torch.testing.assert_close(cum, cum_w, rtol=1e-5, atol=0)
     assert read_step_banded(read=7, **args, **kw)[1].equal(dn)
@@ -214,6 +225,82 @@ def test_full_frame_step_matches_plain(card, noise):
     torch.testing.assert_close(dn, dn_w, rtol=1e-5, atol=0)
     torch.testing.assert_close(cum, cum_w, rtol=1e-5, atol=0)
     assert read_step(read=7, **args, **kw)[1].equal(dn)
+
+
+def _step_edge_inputs(dev, B, W, S, n_cr, crowd, rows):
+    """One read's inputs at an edge of the per-read kernels' tiling: the
+    expected band (many small values) at ``rows`` ("any", "bottom" or
+    "unaligned" y0), zero, small-lambda and Gaussian background columns, a
+    hit pair on one pixel and ``crowd`` hits packed into one 8 x 8 patch
+    (zero charges scattered among them)."""
+    g = torch.Generator().manual_seed(S * 100 + W + n_cr)
+    r = lambda *shape: torch.rand(shape, generator=g)
+    y0 = {"any": torch.randint(0, S - W + 1, (B,), generator=g),
+          "bottom": torch.full((B,), S - W),
+          "unaligned": torch.tensor([3, 41, 93])[:B]}[rows]
+    bg = 3.0 * r(B, S, S)
+    bg[:, :, :3] = 0.0
+    cr_pos = torch.randint(0, S, (B, 2, n_cr), generator=g,
+                           dtype=torch.int32)
+    c = min(crowd, n_cr - 2)
+    cr_pos[:, :, 2:2 + c] = S // 2 - 4 + torch.randint(
+        0, 8, (B, 2, c), generator=g, dtype=torch.int32)
+    cr_pos[:, :, :2] = S // 3                          # one pixel, twice
+    cr_q = 1000.0 * r(B, n_cr)
+    cr_q[:, 5::7] = 0.0
+    t = dict(seed=torch.tensor([[3, 7], [-1, 9], [5, -5]],
+                               dtype=torch.int32)[:B],
+             y0=y0.to(torch.int32), dt=torch.tensor([2.9, 5.0, 0.7])[:B],
+             cum=5e4 * r(B, S, S), band=800.0 * r(B, W, S) ** 3,
+             add=800.0 * r(B, S, S), bg_rate=bg,
+             bias_map=1000.0 + r(S, S), inv_gain=1.0 / (2.5 + 0.02 * r(S, S)),
+             nl_coeffs=torch.tensor([0.012, 0.012, 0.016])[:, None, None]
+             * (1 + 0.03 * r(3, S, S)), cr_pos=cr_pos, cr_q=cr_q)
+    t = {k: v.to(dev).contiguous() for k, v in t.items()}
+    t["consts"] = (20.0, 78000.0, 2.5, 0.015)
+    return t
+
+
+# (B, W, S, n_cr, hits crowded into one patch, band rows)
+STEP_EDGES = {
+    "S=100": (2, 16, 100, 8, 0, "any"),         # not a multiple of a tile
+    "S=136": (2, 32, 136, 8, 0, "any"),
+    "odd S=77": (2, 16, 77, 8, 0, "any"),       # B3: no 4-pixel alignment
+    "W=S": (2, 96, 96, 8, 0, "any"),            # the band-off window
+    "band at the bottom rows": (2, 32, 128, 8, 0, "bottom"),
+    "unaligned y0": (3, 32, 128, 8, 0, "unaligned"),
+    "crowded tile": (2, 32, 128, 64, 60, "any"),  # every hit in one tile
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(STEP_EDGES))
+@pytest.mark.parametrize("noise", [False, True])
+@pytest.mark.parametrize("ipc", [False, True])
+def test_banded_step_matches_plain_bit_for_bit_at_edges(card, edge, noise,
+                                                        ipc):
+    """The banded step's kernel = its plain reference bit for bit at the
+    edges of its tiling and hit staging, the band drawn in the kernel."""
+    args = _banded_args(_step_edge_inputs(card, *STEP_EDGES[edge]))
+    kw = dict(poisson=noise, read_noise=noise, ipc=ipc)
+    cum, dn = read_step_banded(read=5, **args, **kw)
+    cum_w, dn_w = _banded_reference(read=5, **args, **kw)
+    assert torch.equal(dn, dn_w) and torch.equal(cum, cum_w)
+    assert read_step_banded(read=5, **args, **kw)[1].equal(dn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", sorted(STEP_EDGES))
+@pytest.mark.parametrize("noise", [False, True])
+def test_full_frame_step_matches_plain_bit_for_bit_at_edges(card, edge,
+                                                            noise):
+    """The full-frame step's kernel = its plain version bit for bit at
+    frames that no tile or 4-pixel group divides."""
+    args = _full_frame_args(_step_edge_inputs(card, *STEP_EDGES[edge]))
+    kw = dict(poisson=noise, read_noise=noise)
+    cum, dn = read_step(read=5, **args, **kw)
+    cum_w, dn_w = read_step_plain(read=5, **args, **kw)
+    assert torch.equal(dn, dn_w) and torch.equal(cum, cum_w)
 
 
 @pytest.mark.cuda

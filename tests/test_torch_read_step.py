@@ -22,8 +22,8 @@ from jax.experimental.pallas import tpu as pltpu
 from wayne_tpu.ops.pallas_readout import fused_read_step, fused_read_step_banded
 from wayne_tpu_torch.ops import readout as ro
 from wayne_tpu_torch.ops.readout import (
-    add_hits, read_step, read_step_banded, read_step_banded_plain,
-    read_step_plain,
+    add_hits, exposure_readout_plain, read_step, read_step_banded,
+    read_step_banded_plain, read_step_plain, sample_band,
 )
 
 torch.set_num_threads(1)
@@ -131,6 +131,47 @@ def test_full_frame_plain_matches_pallas_interpret_noise_off(bg_poisson,
                                        rtol=1e-5)
             np.testing.assert_allclose(dn_t[b].numpy(), np.asarray(dn_j),
                                        rtol=1e-5)
+
+
+@pytest.mark.parametrize("ipc", [False, True])
+@pytest.mark.parametrize("poisson", [False, True])
+def test_banded_wrapper_draws_the_expected_band(poisson, ipc):
+    """The banded step takes the EXPECTED band: on CPU tensors, with the
+    noise on it is ``sample_band`` then ``read_step_banded_plain`` bit for
+    bit, with the noise off the band is added as given; and reads 0 and 1
+    through it are the whole-exposure readout's two reads, bit for bit."""
+    cum, band, bg, y0, dt, cr_pos, cr_q = (torch.as_tensor(a)
+                                           for a in _banded_inputs())
+    bias, inv_gain, nl = (torch.as_tensor(a)
+                          for a in _planes(np.random.RandomState(6)))
+    seed = torch.as_tensor(SEEDS)
+    consts = tuple(CONSTS.tolist())
+    flags = dict(poisson=poisson, read_noise=poisson, ipc=ipc)
+    planes = dict(bg_rate=bg, bias_map=bias, inv_gain=inv_gain,
+                  nl_coeffs=nl, consts=consts)
+    step = dict(planes, seed=seed, y0=y0, cr_pos=cr_pos, cr_q=cr_q, **flags)
+    got = read_step_banded(read=READ, dt=dt, cum=cum, band=band, **step)
+    drawn = sample_band(seed, READ, y0, band) if poisson else band
+    assert poisson != torch.equal(drawn, band)
+    want = read_step_banded_plain(read=READ, dt=dt, cum=cum, band=drawn,
+                                  **step)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+    # reads 0 (zero entries) and 1 from zero charge, against the
+    # whole-exposure readout
+    pair = lambda a: torch.stack([torch.zeros_like(a), a], 1).contiguous()
+    reads, cum_w = exposure_readout_plain(
+        seed, torch.stack([y0, y0], 1), pair(dt), pair(band), bg, bias,
+        inv_gain, nl, pair(cr_pos), pair(cr_q), consts, **flags)
+    c = torch.zeros_like(cum)
+    for k in range(2):
+        c, dn = read_step_banded(
+            read=k, dt=pair(dt)[:, k].contiguous(), cum=c,
+            band=pair(band)[:, k].contiguous(),
+            **dict(step, cr_pos=pair(cr_pos)[:, k].contiguous(),
+                   cr_q=pair(cr_q)[:, k].contiguous()))
+        assert torch.equal(dn, reads[:, k])
+    assert torch.equal(c, cum_w)
 
 
 def _law_run(step, bg, rn, reads=4, B=16):

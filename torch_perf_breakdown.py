@@ -5,34 +5,46 @@
         [--parent DIR] [--rounds N]
 
 Runs ``Observation.simulate()`` of the headline visit as ``chip_smoke.py``
-cuts it (``ORBITS`` orbits, ``CHUNK`` exposures per readout launch): once to
-warm up, three times timed with the host clock around a synchronised call,
-then once under ``torch.profiler`` for the device time per kernel and the
-device's idle share over the call. Then times each kernel alone at the
-visit's chunk shape — the whole-exposure readout on the inputs the main
-path gives its first chunk and on ``chip_smoke.py``'s synthetic ones,
-noise on and off, and the per-read steps at read 8 — in the port's build
-and the build of another checkout's sources (``--parent``), taken in turn
-``--rounds`` times; each build's share of pixels identical to the plain
-version beside it. Last, counts the SASS instructions that one Philox
-block adds to a kernel (``cuobjdump -sass`` of a probe built with the
-port's flags) and fails unless they are ``chip_smoke.COSTS["philox"]``.
-Prints one JSON object (and writes it to ``--out``) naming the card and
-its power limit.
+cuts it (``ORBITS`` orbits, ``CHUNK`` exposures per readout launch) on both
+readout routes, the whole-exposure one and the per-read one
+(``fused_reads=False``): once to warm up, three times timed with the host
+clock around a synchronised call, then once under ``torch.profiler`` for
+the device time per kernel, the kernels per chunk and the device's idle
+share over the call. With ``--parent DIR`` (another checkout, e.g. the
+parent commit unpacked with ``git archive``) it profiles that checkout's
+per-read route too, in a process of its own. Then times each kernel alone
+at the visit's chunk shape, L2-warm and L2-cold (``chip_smoke.device_ms``)
+— the whole-exposure readout on the inputs the main path gives its first
+chunk and on ``chip_smoke.py``'s synthetic ones, noise on and off, and the
+per-read steps at read 8 — in the port's build and the build of DIR's
+sources, taken in turn ``--rounds`` times; each build's share of pixels identical
+to the plain version beside it, and each build's registers and spills
+(``ptxas -v``). Each build's banded step gets the band its contract
+expects: the parent's (before the in-kernel draw) a band sampled by
+``sample_band``, timed also with that sampling. Last, counts the SASS
+instructions that one Philox block adds to a kernel (``cuobjdump -sass``
+of a probe built with the port's flags) and fails unless they are
+``chip_smoke.COSTS["philox"]``. Prints one JSON object (and writes it to
+``--out``) naming the card and its power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import re
+import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 
 from chip_smoke import (
-    CHUNK, COSTS, HERE, NOISE_ON, card_line, cuda_ms, headline_observation,
+    CHUNK, COSTS, HERE, NOISE_ON, card_line, cuda_ms, device_ms,
+    headline_observation,
     readout_inputs, recorded_readout, step_args, step_reads,
 )
 
@@ -54,45 +66,104 @@ def _busy_ms(events) -> tuple[float, list[tuple[float, float]]]:
     return busy / 1e3, spans
 
 
-def _build_from(ro, csrc: str) -> str:
-    """The port's build of the kernel sources in ``csrc`` (those of another
-    checkout, e.g. the parent commit unpacked with ``git archive``)."""
+def _csrc_of(tree: str) -> str:
+    return os.path.join(tree, "wayne_tpu_torch", "csrc")
+
+
+def _build_from(ro, csrc: str, flags: list[str]) -> str:
+    """The port's build of the kernel sources in ``csrc`` (the port's own or
+    another checkout's) with nvcc ``flags``."""
     saved = ro._CSRC
     ro._CSRC = csrc
     try:
-        return ro.build(verbose=True)
+        return ro.build(verbose=True, flags=flags)
     finally:
         ro._CSRC = saved
 
 
+def ptxas_usage(ro, csrc: str, flags: list[str]) -> dict:
+    """Registers and spill bytes of each readout kernel of the sources in
+    ``csrc`` built with ``flags`` (``nvcc -Xptxas -v``)."""
+    usage = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in ro.SOURCES:
+            proc = subprocess.run(
+                [ro._nvcc(), *flags, "-Xptxas=-v", "-cubin", "-o",
+                 os.path.join(tmp, name + ".cubin"),
+                 os.path.join(csrc, name)],
+                check=True, capture_output=True, text=True)
+            usage.update(parse_ptxas(proc.stderr))
+    return usage
+
+
+_KERNELS = ("exposure_readout_kernel", "read_step_banded_kernel",
+            "read_step_kernel")
+
+
+def parse_ptxas(log: str) -> dict:
+    """{kernel: {"registers", "spill_stores", "spill_loads"}} for the
+    readout kernels named in a ``ptxas -v`` log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            fn = next((k for k in _KERNELS if k in m.group(1)), None)
+        elif fn and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),
+                                          spill_loads=int(m.group(2)))
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
 def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
                    rounds: int) -> dict:
-    """Each kernel alone in the port's build and the ``parent`` sources'
-    build, taken in turn ``rounds`` times: the whole-exposure readout on
-    each of ``inputs`` (name -> (args, flags)) with the noise on and off,
-    and the per-read steps on ``steps`` (name -> (wrapper, kwargs)); then
-    each build's share of pixels identical to the plain version."""
-    builds = {"port": ro._library()}
+    """Each kernel alone in the port's build and the ``parent`` checkout's
+    build, taken in turn ``rounds`` times, L2-
+    warm and L2-cold: the whole-exposure readout on each of ``inputs``
+    (name -> (args, flags)) with the noise on and off, and the per-read
+    steps on ``steps`` (name -> (wrapper, kwargs for the port, kwargs for
+    the parent, plain version on the parent's kwargs)); then each build's
+    share of pixels identical to the plain version and its registers and
+    spills."""
+    sources = {"port": (ro._CSRC, ro.NVCC_FLAGS)}
     if parent:
-        print(f"build parent: {parent}")
-        builds["parent"] = ro.load(_build_from(ro, parent))
+        sources["parent"] = (_csrc_of(parent), ro.NVCC_FLAGS)
+    builds = {}
+    for b, (csrc, flags) in sources.items():
+        print(f"build {b}: {csrc} {' '.join(flags)}")
+        builds[b] = ro.load(_build_from(ro, csrc, flags))
     modes = {"noise_on": {}, "noise_off": dict(poisson=False,
                                                read_noise=False)}
     out = {b: {} for b in builds}
+
+    def timed(b, name, fn, reps):
+        for temp in ("warm", "cold"):
+            out[b].setdefault(f"{name}/{temp}", []).append(
+                device_ms(fn, reps, cold=temp == "cold"))
+
     try:
-        for _ in range(rounds):
+        for r in range(rounds):
             for b, lib in builds.items():
+                print(f"round {r}: timing {b}", flush=True)
                 ro._lib = lib
                 for i, (args, flags) in inputs.items():
                     for m, extra in modes.items():
                         kw = dict(flags, **extra)
-                        out[b].setdefault(f"{i}/{m}", []).append(cuda_ms(
-                            lambda: ro.exposure_readout(*args, **kw),
-                            reps=20, warmup=3))
-                for name, (step, kw) in steps.items():
-                    out[b].setdefault(name, []).append(cuda_ms(
-                        lambda: step(**kw), reps=50, warmup=3))
+                        timed(b, f"{i}/{m}",
+                              lambda: ro.exposure_readout(*args, **kw), 20)
+                for name, (step, kw, kw_parent, _) in steps.items():
+                    kw = kw_parent if b == "parent" else kw
+                    timed(b, name, lambda: step(**kw), 50)
+                if b == "parent":
+                    # the parent's route drew the band in torch first: some
+                    # 600 launches, which the host paces (cuda_ms)
+                    step, kw, _, _ = steps["read_step_banded"]
+                    out[b].setdefault("read_step_banded+sample_band/paced",
+                                      []).append(cuda_ms(
+                        lambda: step(**dict(kw, band=_sampled(kw))), 10))
         for b, lib in builds.items():
+            print(f"checking {b} against the plain versions")
             ro._lib = lib
             check = {}
             for i, (args, flags) in inputs.items():
@@ -103,10 +174,88 @@ def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
                     check[f"{i}/{m}"] = {
                         "identical_share": float((got == want).float().mean()),
                         "max_abs_err_dn": float((got - want).abs().max())}
+            for name, (step, kw, kw_parent, plain) in steps.items():
+                cum, got = step(**(kw_parent if b == "parent" else kw))
+                cum_w, want = plain(**kw_parent)
+                check[name] = {
+                    "identical_share": float((got == want).float().mean()),
+                    "max_abs_err_dn": float((got - want).abs().max()),
+                    "charge_identical": bool(torch.equal(cum, cum_w))}
             out[f"{b}_vs_plain"] = check
+            out[f"{b}_ptxas"] = ptxas_usage(ro, *sources[b])
     finally:
         ro._lib = builds["port"]
     return out
+
+
+def _sampled(kw: dict):
+    """The banded step's band as ``sample_band`` draws it for ``kw``."""
+    from wayne_tpu_torch.ops.readout import sample_band
+    return sample_band(kw["seed"], kw["read"], kw["y0"], kw["band"])
+
+
+def profile_route(obs, fused: bool) -> dict:
+    """``simulate()`` on one readout route (``fused``: the whole-exposure
+    kernel, else the per-read steps): a warm-up, three host-clock walls
+    around a synchronised call, then one call under ``torch.profiler`` for
+    the device's busy time and idle share, the kernels per chunk and the
+    top kernels by device time."""
+    import math
+
+    from torch.profiler import ProfilerActivity, profile
+
+    obs.static = dataclasses.replace(obs.static, fused_reads=fused)
+    n = obs.plan.n_exposures
+    obs.simulate(chunk=CHUNK)                           # warm-up
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        obs.simulate(chunk=CHUNK)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        obs.simulate(chunk=CHUNK)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    events = prof.events()
+    busy_ms, spans = _busy_ms(events)
+    per_kernel: dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    readout_ms = sum(v for k, v in per_kernel.items()
+                     if any(name in k for name in _KERNELS))
+    return {
+        "simulate_wall_s": walls, "simulate_exp_per_s": [n / w for w in walls],
+        "profiled_wall_s": prof_wall,
+        "device_busy_ms": busy_ms,
+        "device_window_ms": ((spans[-1][1] - spans[0][0]) / 1e3
+                             if spans else 0.0),
+        "device_idle_share_of_wall": 1.0 - busy_ms / (prof_wall * 1e3),
+        # the profiler slows the host: the same busy time against the
+        # fastest unprofiled call
+        "device_idle_share_of_unprofiled_wall":
+            1.0 - busy_ms / (min(walls) * 1e3),
+        "readout_kernel_ms_in_visit": readout_ms,
+        "readout_share_of_busy": readout_ms / busy_ms if busy_ms else None,
+        "kernels_launched": len(spans),
+        "kernels_per_chunk": len(spans) / math.ceil(n / CHUNK),
+        "top_kernels_ms": sorted(per_kernel.items(),
+                                 key=lambda kv: -kv[1])[:12],
+    }
+
+
+def _profile_other(tree: str) -> dict:
+    """``profile_route`` of the per-read route of the package in checkout
+    ``tree``, run in a process of its own (``--per-read-of``)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--per-read-of", tree],
+        check=True, capture_output=True, text=True, timeout=600)
+    return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
 _PHILOX_PROBE = r"""
@@ -188,45 +337,33 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--rounds", type=int, default=3,
                     help="rounds of timing every build in turn")
     ap.add_argument("--parent", default=None,
-                    help="kernel sources (csrc/) of another checkout to time "
-                    "in turns with the port's, e.g. the parent commit's")
+                    help="another checkout (e.g. the parent commit's) whose "
+                    "kernels are timed in turns with the port's and whose "
+                    "per-read route is profiled")
+    ap.add_argument("--per-read-of", default=None, metavar="DIR",
+                    help="only profile the per-read route of checkout DIR's "
+                    "package and print it as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("torch_perf_breakdown.py needs a CUDA card")
-
-    from torch.profiler import ProfilerActivity, profile
+    sys.stdout.reconfigure(line_buffering=True)
+    if args.per_read_of:
+        sys.path.insert(0, os.path.abspath(args.per_read_of))
+        print(json.dumps(profile_route(headline_observation()[1], False)))
+        return 0
 
     from wayne_tpu_torch.calibration import sample_sequence_times
     from wayne_tpu_torch.ops import readout as ro
 
     cfg, obs = headline_observation()
     n = obs.plan.n_exposures
-    obs.simulate(chunk=CHUNK)                           # warm-up
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        obs.simulate(chunk=CHUNK)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        obs.simulate(chunk=CHUNK)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    events = prof.events()
-    busy_ms, spans = _busy_ms(events)
-    window_ms = ((spans[-1][1] - spans[0][0]) / 1e3) if spans else 0.0
-    per_kernel: dict[str, float] = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    readout_ms = sum(v for k, v in per_kernel.items()
-                     if "exposure_readout_kernel" in k)
+    print("profiling both routes")
+    routes = {"whole_exposure": profile_route(obs, True),
+              "per_read": profile_route(obs, False)}
+    obs.static = dataclasses.replace(obs.static, fused_reads=True)
+    if args.parent:
+        print(f"profiling the per-read route of {args.parent}")
+        routes["parent_per_read"] = _profile_other(args.parent)
 
     # the kernel alone at the visit's chunk shape, on the main path's
     # inputs and on chip_smoke.py's synthetic ones
@@ -238,33 +375,40 @@ def main(argv: list[str] | None = None) -> int:
                                      sample_sequence_times(
                                          cfg.samp_seq, cfg.nsamp, S)),
                       NOISE_ON)}
-    # the per-read steps at read 8 of the synthetic chunk, noise on
+    # the per-read steps at read 8 of the synthetic chunk, noise on; the
+    # parent's banded step takes its band sampled. The banded step also
+    # with IPC on, and without hits or with a zero band, which splits its
+    # time.
     syn, k = inputs["synthetic"][0], NR // 2
     _, cums = step_reads(ro.read_step_banded, None, syn, False, NOISE_ON)
     step_on = {f: v for f, v in NOISE_ON.items()
                if f not in ("with_cr", "ipc")}
+    banded = dict(step_args(syn, k, cums[:, k - 1].contiguous(), False,
+                            True), **NOISE_ON)
+    full = dict(step_args(syn, k, cums[:, k - 1].contiguous(), True, True),
+                **step_on)
+    ipc = dict(banded, ipc=True)
+    no_cr = dict(banded, with_cr=False)
+    no_band = dict(banded, band=torch.zeros_like(banded["band"]))
     steps = {
-        "read_step_banded": (ro.read_step_banded, dict(step_args(
-            syn, k, cums[:, k - 1].contiguous(), False, True), **NOISE_ON)),
-        "read_step": (ro.read_step, dict(step_args(
-            syn, k, cums[:, k - 1].contiguous(), True, True), **step_on))}
+        "read_step_banded": (ro.read_step_banded, banded,
+                             dict(banded, band=_sampled(banded)),
+                             ro.read_step_banded_plain),
+        "read_step_banded/ipc": (ro.read_step_banded, ipc,
+                                 dict(ipc, band=_sampled(ipc)),
+                                 ro.read_step_banded_plain),
+        "read_step_banded/no_cr": (ro.read_step_banded, no_cr,
+                                   dict(no_cr, band=_sampled(no_cr)),
+                                   ro.read_step_banded_plain),
+        "read_step_banded/zero_band": (ro.read_step_banded, no_band, no_band,
+                                       ro.read_step_banded_plain),
+        "read_step": (ro.read_step, full, full, ro.read_step_plain)}
 
     out = {
         "card": card_line(), "device": torch.cuda.get_device_name(0),
         "visit": f"wasp43b_g141_scan, {cfg.n_orbits} orbit(s), {n} "
                  f"exposures, chunk {CHUNK}",
-        "simulate_wall_s": walls, "simulate_exp_per_s": [n / w for w in walls],
-        "profiled_wall_s": prof_wall,
-        "device_busy_ms": busy_ms, "device_window_ms": window_ms,
-        "device_idle_share_of_wall": 1.0 - busy_ms / (prof_wall * 1e3),
-        # the profiler slows the host: the same busy time against the
-        # fastest unprofiled call
-        "device_idle_share_of_unprofiled_wall":
-            1.0 - busy_ms / (min(walls) * 1e3),
-        "readout_kernel_ms_in_visit": readout_ms,
-        "readout_share_of_busy": readout_ms / busy_ms if busy_ms else None,
-        "kernels_launched": len(spans),
-        "top_kernels_ms": top,
+        **routes,
         "kernels_alone_ms_per_launch": _kernel_builds(
             ro, inputs, steps, args.parent, args.rounds),
         "philox_sass": philox_sass(ro),

@@ -1,7 +1,9 @@
 // Device code shared by the readout kernels for NVIDIA Hopper (sm_90a):
 // the whole-exposure kernel (readout.cu) and the per-read kernels
-// (read_step.cu). Everything here has internal linkage, so each source
-// that includes it keeps its own copy.
+// (read_step.cu): the Philox generator, the samplers, a pixel's read update
+// (background, band), the hit staging and the non-linearity. Everything
+// here has internal linkage, so each source that includes it keeps its own
+// copy.
 //
 // The plain PyTorch versions of the same arithmetic are in
 // wayne_tpu_torch/ops/random.py (Philox, uniform24, box_muller,
@@ -18,7 +20,7 @@
 namespace {
 
 constexpr int BX = 32;  // threads per block along x (one warp)
-constexpr int BY = 8;   // threads per block along y
+constexpr int BY = 8;   // threads per block along y (its warps)
 
 // Flag bits, mirrored in wayne_tpu_torch/ops/readout.py.
 enum : int {
@@ -79,6 +81,37 @@ __device__ __constant__ float kInv[12] = {
     1.0f / 6.0f, 1.0f / 7.0f, 1.0f / 8.0f, 1.0f / 9.0f, 1.0f / 10.0f,
     1.0f / 11.0f, 1.0f / 12.0f};
 
+// The exact branch of the sampler (0 < lam < 3): a 12-term inverse
+// transform on the pixel's own uniform (counter tag `tag`).
+__device__ __forceinline__ float small_lambda_sample(float lam, uint32_t k0,
+                                                     uint32_t k1,
+                                                     uint32_t read,
+                                                     uint32_t pix,
+                                                     uint32_t tag) {
+  uint32_t c[4] = {read, pix, tag, 0u};
+  philox4x32_10(k0, k1, c);
+  const float u = uniform24(c[0]);
+  float p = expf(-lam), cum = 0.0f, k = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) {
+    cum = cum + p;
+    k = k + (u > cum ? 1.0f : 0.0f);
+    p = (p * lam) * kInv[j];
+  }
+  return k;
+}
+
+// The sampler for lam >= 3 on the normal z: Cornish-Fisher below 100,
+// else Gaussian.
+__device__ __forceinline__ float gaussian_sample(float lam, float z) {
+  const float skew = lam < 100.0f ? (z * z - 1.0f) / 6.0f : 0.0f;
+  return fmaxf(rintf(lam + sqrtf(lam) * z + skew), 0.0f);
+}
+
+__device__ __forceinline__ bool is_small_lambda(float lam) {
+  return lam > 0.0f && lam < 3.0f;
+}
+
 // Three-regime Poisson: lam <= 0 -> 0 exactly; lam < 3 exact 12-term
 // inverse transform on its own uniform; lam < 100 Cornish-Fisher; Gaussian.
 __device__ __forceinline__ float poisson_sample(float lam, float z,
@@ -86,21 +119,43 @@ __device__ __forceinline__ float poisson_sample(float lam, float z,
                                                 uint32_t read, uint32_t pix,
                                                 uint32_t tag) {
   if (!(lam > 0.0f)) return 0.0f;
-  if (lam < 3.0f) {
-    uint32_t c[4] = {read, pix, tag, 0u};
-    philox4x32_10(k0, k1, c);
-    const float u = uniform24(c[0]);
-    float p = expf(-lam), cum = 0.0f, k = 0.0f;
+  if (lam < 3.0f) return small_lambda_sample(lam, k0, k1, read, pix, tag);
+  return gaussian_sample(lam, z);
+}
+
+// poisson_sample of a thread's N pixels (lam[j], z[j] at pixel pix[j]),
+// called by all 32 lanes of a warp whose lanes share the key (k0, k1).
+// The exact branch runs once over the warp's pixels that take it,
+// compacted through `queue` (32 * N slots of this warp's shared memory),
+// instead of once per pixel slot wherever any lane of the warp takes it;
+// every value is the one poisson_sample returns.
+template <int N>
+__device__ __forceinline__ void poisson_sample_warp(
+    const float* lam, const float* z, const uint32_t* pix, uint32_t k0,
+    uint32_t k1, uint32_t read, uint32_t tag, int lane, float2* queue,
+    float* out) {
+  int slot[N];
+  int n = 0;
 #pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      cum = cum + p;
-      k = k + (u > cum ? 1.0f : 0.0f);
-      p = (p * lam) * kInv[j];
-    }
-    return k;
+  for (int j = 0; j < N; ++j) {
+    const bool small = is_small_lambda(lam[j]);
+    const unsigned mask = __ballot_sync(0xffffffffu, small);
+    slot[j] = small ? n + __popc(mask & ((1u << lane) - 1u)) : -1;
+    if (small)
+      queue[slot[j]] = make_float2(lam[j], __uint_as_float(pix[j]));
+    n += __popc(mask);
   }
-  const float skew = lam < 100.0f ? (z * z - 1.0f) / 6.0f : 0.0f;
-  return fmaxf(rintf(lam + sqrtf(lam) * z + skew), 0.0f);
+  __syncwarp();
+  for (int i = lane; i < n; i += 32) {
+    const float2 q = queue[i];
+    queue[i].x = small_lambda_sample(q.x, k0, k1, read,
+                                     __float_as_uint(q.y), tag);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+    out[j] = slot[j] >= 0 ? queue[slot[j]].x
+             : lam[j] > 0.0f ? gaussian_sample(lam[j], z[j]) : 0.0f;
 }
 
 // A read interval's background on top of the charge: Poisson(lam) when
@@ -112,6 +167,68 @@ __device__ __forceinline__ float add_background(float cum, float lam,
   return cum + (sampled ? poisson_sample(lam, z_bg, k0, k1, read, pix,
                                          TAG_BG_UNIFORM)
                         : lam);
+}
+
+// The band's interval on top of the charge: Poisson(e) on the band's own
+// counters (tags TAG_BAND_NORMAL and TAG_BAND_UNIFORM) when sampled, else e.
+__device__ __forceinline__ float add_band(float cum, float e, bool sampled,
+                                          uint32_t k0, uint32_t k1,
+                                          uint32_t read, uint32_t pix) {
+  if (sampled) {
+    uint32_t c[4] = {read, pix, TAG_BAND_NORMAL, 0u};
+    philox4x32_10(k0, k1, c);
+    float z, unused;
+    box_muller(c[0], c[1], &z, &unused);
+    e = poisson_sample(e, z, k0, k1, read, pix, TAG_BAND_UNIFORM);
+  }
+  return cum + e;
+}
+
+// A cosmic-ray hit staged in shared memory.
+struct Hit {
+  int y, x;
+  float q;
+};
+
+// Called by all 32 lanes of a warp: compacts entries [i0, i1) of one read's
+// hit list (rows py, columns px, charges pq) to the hits with a non-zero
+// charge inside rows [oy, oy + th) and columns [ox, ox + BX), in list order
+// (a ballot prefix), into dst. Returns how many, in every lane.
+__device__ __forceinline__ int compact_hits(const int* py, const int* px,
+                                            const float* pq, int i0, int i1,
+                                            int ox, int oy, int th, int lane,
+                                            Hit* dst) {
+  int n = 0;
+  for (int base = i0; base < i1; base += 32) {
+    const int i = base + lane;
+    Hit h{0, 0, 0.0f};
+    bool in = false;
+    if (i < i1) {
+      h = Hit{py[i], px[i], pq[i]};
+      in = h.q != 0.0f && h.y >= oy && h.y < oy + th && h.x >= ox &&
+           h.x < ox + BX;
+    }
+    const unsigned mask = __ballot_sync(0xffffffffu, in);
+    if (in) dst[n + __popc(mask & ((1u << lane) - 1u))] = h;
+    n += __popc(mask);
+  }
+  return n;
+}
+
+// Adds the n staged hits, in order, to those of a thread's PY pixels (rows
+// y[j] of column x) that they land on: two hits on one pixel add in list
+// order.
+template <int PY>
+__device__ __forceinline__ void add_staged_hits(const Hit* hits, int n,
+                                                const int* y, int x,
+                                                const bool* valid,
+                                                float* cum) {
+  for (int i = 0; i < n; ++i) {
+    const Hit hit = hits[i];
+#pragma unroll
+    for (int j = 0; j < PY; ++j)
+      if (valid[j] && hit.y == y[j] && hit.x == x) cum[j] = cum[j] + hit.q;
+  }
 }
 
 // Saturation and the per-pixel cubic non-linearity of the sensed charge.

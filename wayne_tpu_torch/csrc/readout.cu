@@ -45,9 +45,10 @@
 //     pixels couple their 4 neighbours. So IPC works at every frame size
 //     (the TPU forbade it when tiled); a tile TH rows tall recomputes fewer
 //     halo rows than one BY rows tall.
-// The Philox generator and the sampler are in detector.cuh, shared with
-// the per-read kernels (read_step.cu); Box-Muller takes its sine and cosine
-// from one sincosf (one range reduction, the same bits as sinf and cosf).
+// The Philox generator, the samplers, the band's draw and the hit staging
+// are in detector.cuh, shared with the per-read kernels (read_step.cu);
+// Box-Muller takes its sine and cosine from one sincosf (one range
+// reduction, the same bits as sinf and cosf).
 //   * RNG: Philox4x32-10, key = the exposure's two seed words, counter =
 //     (k, y * S + x, stream tag, 0). Tags: 0 Box-Muller pair
 //     (background z, read-noise z), 1 the band's normal, 2 and 3 the
@@ -88,11 +89,6 @@ constexpr int WARPS = BX * BY / 32;
 // fit in an SM's 228 KB of shared memory; one read's list is staged
 // whatever its size.
 constexpr size_t STAGE_BYTES = 64 * 1024;
-
-struct Hit {
-  int y, x;
-  float q;
-};
 
 struct Args {
   const int* seed;       // (B, 2)
@@ -142,21 +138,8 @@ __device__ __forceinline__ void stage_hits(const Args& a, int b, int g0,
     const int* py = a.cr_pos + bk * 2 * n_cr;
     const int* px = py + n_cr;
     const float* pq = a.cr_q + bk * n_cr;
-    Hit* dst = hits + static_cast<size_t>(k - g0) * n_cr;
-    int n = 0;
-    for (int base = 0; base < n_cr; base += 32) {
-      const int i = base + lane;
-      Hit h{0, 0, 0.0f};
-      bool in = false;
-      if (i < n_cr) {
-        h = Hit{py[i], px[i], pq[i]};
-        in = h.q != 0.0f && h.y >= oy && h.y < oy + TH && h.x >= ox &&
-             h.x < ox + BX;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, in);
-      if (in) dst[n + __popc(mask & ((1u << lane) - 1u))] = h;
-      n += __popc(mask);
-    }
+    const int n = compact_hits(py, px, pq, 0, n_cr, ox, oy, TH, lane,
+                               hits + static_cast<size_t>(k - g0) * n_cr);
     if (lane == 0) count[k - g0] = n;
   }
 }
@@ -246,29 +229,13 @@ exposure_readout_kernel(Args a) {
         if (!valid[j]) continue;
         cum[j] = add_background(cum[j], bg[j] * dt, bg_poisson, z_bg[j], k0,
                                 k1, rd, pix[j]);
-        if (y[j] >= y0 && y[j] < y0 + W) {
-          float e = a.bands[(bk * W + (y[j] - y0)) * S + x];
-          if (poisson) {
-            uint32_t c[4] = {rd, pix[j], TAG_BAND_NORMAL, 0u};
-            philox4x32_10(k0, k1, c);
-            float zb, unused;
-            box_muller(c[0], c[1], &zb, &unused);
-            e = poisson_sample(e, zb, k0, k1, rd, pix[j], TAG_BAND_UNIFORM);
-          }
-          cum[j] = cum[j] + e;
-        }
+        if (y[j] >= y0 && y[j] < y0 + W)
+          cum[j] = add_band(cum[j], a.bands[(bk * W + (y[j] - y0)) * S + x],
+                            poisson, k0, k1, rd, pix[j]);
       }
-      if (with_cr) {
-        const Hit* hits = s_hits + static_cast<size_t>(k - g0) * a.n_cr;
-        const int n = s_count[k - g0];
-        for (int i = 0; i < n; ++i) {
-          const Hit hit = hits[i];
-#pragma unroll
-          for (int j = 0; j < PY; ++j)
-            if (valid[j] && hit.y == y[j] && hit.x == x)
-              cum[j] = cum[j] + hit.q;
-        }
-      }
+      if (with_cr)
+        add_staged_hits<PY>(s_hits + static_cast<size_t>(k - g0) * a.n_cr,
+                            s_count[k - g0], y, x, valid, cum);
 
       float sig[PY];
 #pragma unroll

@@ -315,9 +315,10 @@ def _read_by_read(y0s, dts, frames, cr_pos, cr_q, flags, readout):
     y0s, dts = y0s.t().contiguous(), dts.t().contiguous()
     cr_pos = cr_pos.transpose(0, 1).contiguous()
     cr_q = cr_q.transpose(0, 1).contiguous()
-    # Band off and IPC off: the full-frame step (B3) on band + hits. Band
-    # off with IPC on runs the banded step at W = S, y0 = 0 (B2), which
-    # computes the same chain with IPC.
+    # The banded step (B2) samples the expected band itself. Band off and
+    # IPC off: the full-frame step (B3) on the band sampled here + hits.
+    # Band off with IPC on runs the banded step at W = S, y0 = 0 (B2),
+    # which computes the same chain with IPC.
     full_frame = W == S and not flags.ipc
     if full_frame and flags.cosmic_rays:
         # hits on one pixel add in list order; one wait for the host per
@@ -329,11 +330,11 @@ def _read_by_read(y0s, dts, frames, cr_pos, cr_q, flags, readout):
     for k in range(R + 1):
         if k == 0:
             band = torch.zeros((B, W, S), dtype=torch.float32, device=dev)
-        elif flags.poisson:
-            band = sample_band(seed, k, y0s[k], frames[:, k - 1])
         else:
             band = frames[:, k - 1]
         if full_frame:
+            if flags.poisson and k:
+                band = sample_band(seed, k, y0s[k], band)
             if flags.cosmic_rays:
                 band = add_hits(band, cr_pos[k], cr_q[k], ranks[k], n_ranks)
             cum, dn = read_step(read=k, dt=dts[k], cum=cum,

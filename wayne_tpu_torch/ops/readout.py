@@ -16,7 +16,9 @@ Three kernels, ports of the JAX package's Pallas kernels in
 
 * :func:`read_step_banded` (``csrc/read_step.cu``, port of
   ``fused_read_step_banded``): one read of the same chain, the charge
-  passed in and returned, the band already sampled (:func:`sample_band`).
+  passed in and returned, the expected band Poisson-sampled in the kernel
+  on the whole-exposure kernel's counters (as :func:`sample_band` samples
+  it).
 * :func:`read_step` (``csrc/read_step.cu``, port of ``fused_read_step``):
   one read over the full frame, ``cum = (cum + add) + Poisson(bg_rate *
   dt)`` with ``add`` the already sampled band and hits, no IPC.
@@ -217,8 +219,11 @@ def read_step_banded_plain(
         scalar_gain: bool = False, with_cr: bool = True,
         bg_poisson: bool = True,
         ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the banded read step (same arguments as
-    :func:`read_step_banded`; same arithmetic, same Philox draws)."""
+    """Plain PyTorch version of the banded read step on an ALREADY SAMPLED
+    band (:func:`sample_band`; otherwise the same arguments as
+    :func:`read_step_banded`, the same arithmetic and Philox draws): the
+    counterpart of the Pallas kernel ``fused_read_step_banded``, which
+    takes its band sampled."""
     B, W, S = band.shape
     dev = band.device
     sampled = poisson and bg_poisson
@@ -500,8 +505,10 @@ def read_step_banded(
         bg_poisson: bool = True,
         ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One read of a chunk of B exposures: the background Poisson-sampled
-    on top of ``cum``, the already sampled band added at its row, the
-    cosmic-ray hits deposited in list order, then the readout chain.
+    on top of ``cum``, the band Poisson-sampled at its rows (on the
+    whole-exposure kernel's counters, :func:`sample_band`), the cosmic-ray
+    hits deposited in list order, then the readout chain. One read of
+    :func:`exposure_readout`.
 
     Args:
       seed: (B, 2) int32 exposure seed words; read: the EMITTED read index
@@ -509,8 +516,8 @@ def read_step_banded(
       y0: (B,) int32 band start rows (any row, y0 + W <= S); dt: (B,) f32
         interval durations.
       cum: (B, S, S) f32 charge before the interval.
-      band: (B, W, S) f32 signal electrons this interval, already sampled
-        (:func:`sample_band`).
+      band: (B, W, S) f32 EXPECTED signal electrons this interval; added
+        as given when ``poisson`` is off.
       bg_rate: (B, S, S) expected background electrons per second;
         bias_map, inv_gain (RECIPROCAL gain plane), nl_coeffs: as for
         :func:`exposure_readout`.
@@ -518,7 +525,8 @@ def read_step_banded(
         charges, zero beyond the hit count.
       consts: four host scalars (read_noise_e, full_well_e, gain,
         ipc_alpha).
-      The background is sampled when ``poisson`` and ``bg_poisson``.
+      The band is sampled when ``poisson``, the background when
+      ``poisson`` and ``bg_poisson``.
 
     Returns:
       (cum after the read (B, S, S), read DN (B, S, S)).
@@ -529,6 +537,8 @@ def read_step_banded(
                  scalar_gain=scalar_gain, with_cr=with_cr,
                  bg_poisson=bg_poisson, ipc=ipc)
     if band.device.type == "cpu":
+        if poisson:
+            band = sample_band(seed, read, y0, band)
         return read_step_banded_plain(
             seed, read, y0, dt, cum, band, bg_rate, bias_map, inv_gain,
             nl_coeffs, cr_pos, cr_q, consts, **flags)
