@@ -31,11 +31,21 @@ process per source, in parallel, linked into one library) and then:
    the whole-exposure kernel), its reads against the whole-exposure
    route's, then one chunk with ``band_px: 0`` through the full-frame step
    (16 launches), each beside the whole-exposure route's rate;
-5. times each kernel L2-warm and L2-cold (``device_ms``; the JSON line
-   takes the cold time), its plain version and ``simulate()`` on both
-   routes, and prints each kernel's bound (the bytes over the memory rate
-   against the operations over the rates of their pipes, see ``_bound``)
-   beside the yardstick of the port's first slices.
+5. drives the Monte-Carlo dataset path at full width: ``python -m
+   wayne_tpu_torch.run_dataset`` on the whole headline visit (every
+   planned exposure) for 4 realisations in 2 chunk files, Rp/Rs swept.
+   B1 launches once per exposure batch (no per-read step), the npz files
+   and the manifest are the JAX package's, B1 is held against its plain
+   version bit for bit on the first ensemble batch's recorded arguments,
+   and that batch's ``extract_spectra_cr`` on the card against the CPU at
+   rtol 1e-5; a second run gives exposures/s and visits/s. B1's launch
+   count in the JSON line adds this phase's to the main path's.
+
+Throughout, it times each kernel L2-warm and L2-cold (``device_ms``; the
+JSON line takes the cold time), its plain version and ``simulate()`` on
+both routes, and prints each kernel's bound (the bytes over the memory
+rate against the operations over the rates of their pipes, see
+``_bound``) beside the yardstick of the port's first slices.
 
 Prints the card's name and power limit first, a JSON line with the
 kernels' numbers before the last line, and last
@@ -360,6 +370,27 @@ def small_lambda_warp_share(args) -> float:
     return float(hit.view(B, NR, S, -1, 32).any(-1).float().mean())
 
 
+def first_call(module, name: str, run) -> tuple:
+    """``run()``'s result and the arguments, by name, of the first call of
+    ``module.name`` during ``run()``."""
+    import inspect
+
+    real, seen = getattr(module, name), []
+
+    def record(*args, **kw):
+        if not seen:
+            seen.append(inspect.signature(real).bind(*args, **kw).arguments)
+        return real(*args, **kw)
+
+    setattr(module, name, record)
+    try:
+        result = run()
+    finally:
+        setattr(module, name, real)
+    call, = seen
+    return result, call
+
+
 def recorded_readout(run) -> tuple:
     """``run()``'s result and the readout's arguments and flags exactly as
     the main path gives them, recorded from the first ``exposure_readout``
@@ -368,21 +399,10 @@ def recorded_readout(run) -> tuple:
     import inspect
 
     import wayne_tpu_torch.ops.exposure as ex
-    real, seen = ex.exposure_readout, []
-
-    def record(*args, **kw):
-        if not seen:
-            seen.append(inspect.signature(real).bind(*args, **kw).arguments)
-        return real(*args, **kw)
-
-    ex.exposure_readout = record
-    try:
-        result = run()
-    finally:
-        ex.exposure_readout = real
-    call, = seen
-    names = [p.name for p in inspect.signature(real).parameters.values()
-             if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
+    result, call = first_call(ex, "exposure_readout", run)
+    names = [p.name for p in inspect.signature(
+        ex.exposure_readout).parameters.values()
+        if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
     return result, (tuple(call[n] for n in names),
                     {k: v for k, v in call.items() if k not in names})
 
@@ -805,6 +825,120 @@ def phase_per_read(cfg, obs, card: str) -> dict:
     return dict(read_step_banded=banded_launches, read_step=b3)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the Monte-Carlo dataset path at full width
+# ---------------------------------------------------------------------------
+
+N_MC, CHUNK_MC = 4, 2       # realisations; realisations per chunk file
+
+
+def phase_dataset(card: str) -> tuple[int, list[float]]:
+    """``run_dataset`` on the whole headline visit (every planned exposure)
+    for N_MC realisations in chunks of CHUNK_MC, the Rp/Rs swept: B1's
+    launches, the files, B1 against its plain version on the first
+    ensemble batch's recorded arguments, that batch's extraction on the
+    card against the CPU, and the rate of a second run. Returns (B1's
+    launches in the first run, B1's max abs errors)."""
+    import numpy as np
+    import torch
+
+    import wayne_tpu_torch.parallel.dataset as dataset
+    import wayne_tpu_torch.parallel.ensemble as ensemble
+    from wayne_tpu_torch import run_dataset
+    from wayne_tpu_torch.ops import readout as ro
+
+    t_phase = time.time()
+    kernels = (ro.exposure_readout, ro.read_step_banded, ro.read_step)
+    print(f"phase 5: the Monte-Carlo dataset path, "
+          f"{os.path.relpath(HEADLINE, HERE)} uncut, {N_MC} realisations "
+          f"in chunks of {CHUNK_MC}")
+
+    def cli(out: str) -> int:
+        return run_dataset.main(
+            ["-p", HEADLINE, "-o", out, "--n-mc", str(N_MC), "--chunk-mc",
+             str(CHUNK_MC), "--rp-sigma", "0.002"])
+
+    with tempfile.TemporaryDirectory() as out:
+        for f in kernels:
+            f.launches = 0
+        t0 = time.time()
+        (rc, extract), recorded = recorded_readout(lambda: first_call(
+            ensemble, "extract_spectra_cr", lambda: cli(out)))
+        wall_first = time.time() - t0
+        b1, b2, b3 = (f.launches for f in kernels)
+        with open(os.path.join(out, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        n_exp = manifest["n_exp"]
+        batches = N_MC * math.ceil(n_exp / CHUNK)
+        check(rc == 0 and b1 == batches and b2 == 0 and b3 == 0,
+              f"run_dataset: {b1} whole-exposure launches == {N_MC} "
+              f"realisations x {math.ceil(n_exp / CHUNK)} batches of "
+              f"{CHUNK} ({n_exp} exposures); {b2} banded-step and {b3} "
+              "full-frame launches")
+        files = sorted(n for n in os.listdir(out) if n.endswith(".npz"))
+        check(files == manifest["chunks"] == ["chunk_0000.npz",
+                                              "chunk_0001.npz"]
+              and manifest["n_mc"] == N_MC
+              and manifest["chunk_mc"] == CHUNK_MC
+              and manifest["labels"] == ["rp"] and manifest["nlincorr"]
+              and manifest["dq_aware"] and manifest["subarray"] == 512,
+              f"two chunk files and the manifest {sorted(manifest)}")
+        for name in files:
+            with np.load(os.path.join(out, name)) as z:
+                check(set(z.files) == {"spectra_e", "label_rp"}
+                      and z["spectra_e"].shape == (CHUNK_MC, n_exp, 512)
+                      and np.isfinite(z["spectra_e"]).all(),
+                      f"{name}: spectra_e {z['spectra_e'].shape} finite, "
+                      "label_rp")
+        data = dataset.load_dataset(out)
+        spectra = data["spectra_e"]
+        check(spectra.shape == (N_MC, n_exp, 512)
+              and data["label_rp"].shape == (N_MC,)
+              and float(np.median(spectra.max(axis=-1)))
+              > 3.0 * float(np.median(spectra)),
+              f"load_dataset: spectra {spectra.shape}, the trace above the "
+              f"sky (median column {np.median(spectra):.4g} e-, median "
+              f"peak {np.median(spectra.max(axis=-1)):.4g} e-)")
+
+    errs = hold_recorded(ro, recorded, "phase 5", "first ensemble batch")
+    on_card = ensemble.extract_spectra_cr(**extract)
+    on_cpu = ensemble.extract_spectra_cr(**{
+        k: v.cpu() if isinstance(v, torch.Tensor) else v
+        for k, v in extract.items()})
+    diff = float((on_card.cpu() - on_cpu).abs().max())
+    scale = float(on_cpu.abs().max())
+    check(torch.allclose(on_card.cpu(), on_cpu, rtol=1e-5,
+                         atol=1e-5 * scale),
+          f"extract_spectra_cr of the first batch {tuple(on_cpu.shape)}, "
+          f"card against CPU: max abs diff {diff:.4g} e- (rtol 1e-5, floor "
+          f"1e-5 of the largest column, {scale:.4g} e-)")
+
+    # a second run, its generate_dataset timed (it returns once the last
+    # chunk, copied from the card, is on disk)
+    real, spent = dataset.generate_dataset, []
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        result = real(*args, **kw)
+        spent.append(time.perf_counter() - t0)
+        return result
+
+    dataset.generate_dataset = timed
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            cli(out)
+    finally:
+        dataset.generate_dataset = real
+    wall, = spent
+    n = N_MC * n_exp
+    print(f"timing [{card}]: run_dataset {N_MC} visits x {n_exp} exposures "
+          f"in {wall:.3f} s = {n / wall:.2f} exposures/s, "
+          f"{N_MC / wall:.3f} visits/s (generate_dataset; first run "
+          f"{wall_first:.3f} s with the CLI's set-up); phase 5 took "
+          f"{time.time() - t_phase:.1f} s")
+    return b1, errs
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "wayne_tpu_torch")):
         print("chip_smoke.py: the wayne_tpu_torch package is not beside "
@@ -835,6 +969,10 @@ def main() -> int:
     steps = phase_steps(args, card)
     del args
     per_read = phase_per_read(cfg, obs, card)
+    del obs
+    ds_launches, ds_errs = phase_dataset(card)
+    launches += ds_launches
+    whole["max_abs_err"] = max(whole["max_abs_err"], *ds_errs)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

@@ -373,3 +373,83 @@ def test_generate_on_the_card_matches_cpu(card, tmp_path):
                     assert np.array_equal(rc, np.round(rc)), name
                 assert float(np.isclose(rc, rp, rtol=0, atol=1e-3).mean()
                              ) > 0.99, name
+
+
+# --- the Monte-Carlo dataset path -------------------------------------------
+
+DATASET = dict(TINY, subarray=64, x_ref=10.0, y_ref=10.0, n_lambda=32)
+
+
+def _dataset(out, dev, noise, n_mc=4, chunk_mc=2, chunk=2):
+    from wayne_tpu_torch.parallel.dataset import (
+        generate_dataset, load_dataset,
+    )
+    obs = Observation(config_from_dict(dict(DATASET, noise=noise)),
+                      device=dev)
+    generate_dataset(obs.scenes, obs.tables, obs.static, str(out),
+                     n_mc=n_mc, chunk_mc=chunk_mc, device=dev, chunk=chunk)
+    return load_dataset(str(out))["spectra_e"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [{"preset": "none"}, DETERMINISTIC],
+                         ids=["none", "deterministic"])
+def test_generate_dataset_on_the_card_matches_cpu(card, tmp_path, noise):
+    """generate_dataset on the card (B1, NLINCORR and the extraction on the
+    device) against the same call with device="cpu", the noise off: rtol
+    1e-5 with an absolute floor of 1e-5 of the largest column (faint PSF
+    wings are float32 erf values the two devices round differently)."""
+    got = _dataset(tmp_path / "cuda", "cuda", noise)
+    want = _dataset(tmp_path / "cpu", "cpu", noise)
+    assert got.shape == (4, 5, 64)
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+@pytest.mark.cuda
+def test_ensemble_launches_b1_once_per_exposure_batch(card, tmp_path):
+    """4 realisations of 5 exposures in batches of 2 (the last padded): 3
+    B1 launches a realisation, 12 in all, no per-read step."""
+    for f in (exposure_readout, read_step_banded, read_step):
+        f.launches = 0
+    _dataset(tmp_path, "cuda", {"preset": "all"})
+    assert exposure_readout.launches == 4 * 3
+    assert read_step_banded.launches == 0 and read_step.launches == 0
+
+
+@pytest.mark.cuda
+def test_generate_dataset_chunk_size_invariant_on_the_card(card, tmp_path):
+    """The whole noise chain on: realisations chunked 2 and 4 per file give
+    bit-identical spectra on the card, and so do 2 and 5 exposures per
+    launch."""
+    a = _dataset(tmp_path / "two", "cuda", {"preset": "all"}, chunk_mc=2)
+    b = _dataset(tmp_path / "four", "cuda", {"preset": "all"}, chunk_mc=4)
+    c = _dataset(tmp_path / "five", "cuda", {"preset": "all"}, chunk=5)
+    assert np.isfinite(a).all() and not np.array_equal(a[0], a[1])
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(a, c)
+
+
+@pytest.mark.cuda
+def test_extract_spectra_cr_on_the_card_matches_cpu(card):
+    """One batch's noisy reads and hit lists (cosmic rays on), extracted on
+    the card and on the CPU: rtol 1e-5 with a floor of 1e-5 of the largest
+    column (the two devices sum in other orders)."""
+    from wayne_tpu_torch.ops.exposure import simulate_exposure
+    from wayne_tpu_torch.parallel.ensemble import mc_scenes
+    from wayne_tpu_torch.pytree import tree_map
+    from wayne_tpu_torch.reduction import extract_spectra_cr
+
+    obs = Observation(config_from_dict(dict(DATASET, noise={"preset": "all"})),
+                      device="cuda")
+    obs.tables.cr_rate_px_s.fill_(2e-4)
+    res = simulate_exposure(tree_map(lambda x: x[0], mc_scenes(obs.scenes, 1)),
+                            obs.tables, obs.static)
+    assert int(res.cr_count.sum()) > 10
+    for rt in (None, obs.tables.read_times):
+        got = extract_spectra_cr(res.reads_dn, res.cr_pos, res.cr_count, rt)
+        want = extract_spectra_cr(
+            res.reads_dn.cpu(), res.cr_pos.cpu(), res.cr_count.cpu(),
+            None if rt is None else rt.cpu())
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
+                                   atol=1e-5 * float(want.abs().max()))

@@ -37,7 +37,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for expected in ("wayne_tpu_torch.observation", "wayne_tpu_torch.run_visit",
-                     "wayne_tpu_torch.ops.readout", "wayne_tpu_torch.convert"):
+                     "wayne_tpu_torch.ops.readout", "wayne_tpu_torch.convert",
+                     "wayne_tpu_torch.reduction", "wayne_tpu_torch.run_dataset",
+                     "wayne_tpu_torch.parallel.ensemble",
+                     "wayne_tpu_torch.parallel.dataset",
+                     "wayne_tpu_torch.parallel.torch_data"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -57,6 +61,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from wayne_tpu_torch.config import config_from_dict
     from wayne_tpu_torch.device import resolve_device
     from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.parallel.dataset import generate_dataset
+    from wayne_tpu_torch.run_dataset import main as run_dataset
     from wayne_tpu_torch.run_visit import main
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -69,6 +75,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                    "  n_lambda: 16\n")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["-p", str(yml), "-o", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_dataset(["-p", str(yml), "-o", str(tmp_path / "ds"),
+                     "--n-mc", "2", "--chunk-mc", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        generate_dataset(None, None, None, str(tmp_path / "ds"), n_mc=2)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -10,18 +10,22 @@ readout routes, the whole-exposure one and the per-read one
 (``fused_reads=False``): once to warm up, three times timed with the host
 clock around a synchronised call, then once under ``torch.profiler`` for
 the device time per kernel, the kernels per chunk and the device's idle
-share over the call. With ``--parent DIR`` (another checkout, e.g. the
-parent commit unpacked with ``git archive``) it profiles that checkout's
-per-read route too, in a process of its own. Then times each kernel alone
-at the visit's chunk shape, L2-warm and L2-cold (``chip_smoke.device_ms``)
-— the whole-exposure readout on the inputs the main path gives its first
-chunk and on ``chip_smoke.py``'s synthetic ones, noise on and off, and the
-per-read steps at read 8 — in the port's build and the build of DIR's
-sources, taken in turn ``--rounds`` times; each build's share of pixels identical
-to the plain version beside it, and each build's registers and spills
-(``ptxas -v``). Each build's banded step gets the band its contract
-expects: the parent's (before the in-kernel draw) a band sampled by
-``sample_band``, timed also with that sampling. Last, counts the SASS
+share over the call. It profiles the Monte-Carlo ensemble
+(``simulate_ensemble_spectra``, two realisations of the uncut visit) the
+same way, and again with the extraction replaced by zeros, for the
+extraction's share of the step. With ``--parent DIR`` (another checkout,
+e.g. the parent commit unpacked with ``git archive``) it profiles that
+checkout's per-read route too, in a process of its own. Then times each
+kernel alone at the visit's chunk shape, L2-warm and L2-cold
+(``chip_smoke.device_ms``) — the whole-exposure readout on the inputs the
+main path gives its first chunk and on ``chip_smoke.py``'s synthetic ones,
+noise on and off, and the per-read steps at read 8 — in the port's build
+and the build of DIR's sources, taken in turn ``--rounds`` times; each
+build's share of pixels identical to the plain version beside it, and
+each build's registers and spills (``ptxas -v``). Each build's banded
+step gets the band its contract expects: the parent's (before the
+in-kernel draw) a band sampled by ``sample_band``, timed also with that
+sampling. Last, counts the SASS
 instructions that one Philox block adds to a kernel (``cuobjdump -sass``
 of a probe built with the port's flags) and fails unless they are
 ``chip_smoke.COSTS["philox"]``. Prints one JSON object (and writes it to
@@ -43,7 +47,7 @@ import time
 import torch
 
 from chip_smoke import (
-    CHUNK, COSTS, HERE, NOISE_ON, card_line, cuda_ms, device_ms,
+    CHUNK, COSTS, HEADLINE, HERE, NOISE_ON, card_line, cuda_ms, device_ms,
     headline_observation,
     readout_inputs, recorded_readout, step_args, step_reads,
 )
@@ -64,6 +68,20 @@ def _busy_ms(events) -> tuple[float, list[tuple[float, float]]]:
     if cur is not None:
         busy += cur[1] - cur[0]
     return busy / 1e3, spans
+
+
+def _per_kernel_ms(events) -> dict[str, float]:
+    """Device time (ms) of each kernel name in profiler events."""
+    out: dict[str, float] = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
+def _top(per_kernel: dict[str, float], n: int = 12) -> list:
+    return sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n]
 
 
 def _csrc_of(tree: str) -> str:
@@ -222,11 +240,7 @@ def profile_route(obs, fused: bool) -> dict:
         prof_wall = time.perf_counter() - t0
     events = prof.events()
     busy_ms, spans = _busy_ms(events)
-    per_kernel: dict[str, float] = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start) / 1e3
+    per_kernel = _per_kernel_ms(events)
     readout_ms = sum(v for k, v in per_kernel.items()
                      if any(name in k for name in _KERNELS))
     return {
@@ -244,8 +258,75 @@ def profile_route(obs, fused: bool) -> dict:
         "readout_share_of_busy": readout_ms / busy_ms if busy_ms else None,
         "kernels_launched": len(spans),
         "kernels_per_chunk": len(spans) / math.ceil(n / CHUNK),
-        "top_kernels_ms": sorted(per_kernel.items(),
-                                 key=lambda kv: -kv[1])[:12],
+        "top_kernels_ms": _top(per_kernel),
+    }
+
+
+def profile_ensemble(n_mc: int = 2) -> dict:
+    """``simulate_ensemble_spectra`` of ``n_mc`` realisations of the whole
+    headline visit (every planned exposure, as ``run_dataset`` runs it):
+    a warm-up, three host-clock walls around a synchronised call, then one
+    call under ``torch.profiler``; the same with the extraction replaced
+    by zeros (the simulation alone), whose difference is the extraction's
+    share of the step, on the host's clock and in device busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import wayne_tpu_torch.parallel.ensemble as ensemble
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.parallel.dataset import sweep_scenes
+
+    obs = Observation(load_yaml(HEADLINE))
+    n_exp = obs.plan.n_exposures
+    ens = sweep_scenes(obs.scenes, n_mc)
+    batches = n_mc * -(-n_exp // CHUNK)
+
+    def run():
+        return ensemble.simulate_ensemble_spectra(ens, obs.tables,
+                                                  obs.static, chunk=CHUNK)
+
+    def measure() -> dict:
+        run()                                           # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        events = prof.events()
+        busy_ms, spans = _busy_ms(events)
+        return {"wall_s": walls,
+                "top_kernels_ms": _top(_per_kernel_ms(events)),
+                "exp_per_s": [n_mc * n_exp / w for w in walls],
+                "visits_per_s": [n_mc / w for w in walls],
+                "profiled_wall_s": prof_wall, "device_busy_ms": busy_ms,
+                "device_idle_share_of_unprofiled_wall":
+                    1.0 - busy_ms / (min(walls) * 1e3),
+                "kernels_per_exposure_batch": len(spans) / batches}
+
+    full = measure()
+    reduce = ensemble._reduce
+    ensemble._reduce = lambda res, tables, cfg, *rest: torch.zeros(
+        res.reads_dn.shape[0], cfg.subarray, device=res.reads_dn.device)
+    try:
+        sim = measure()
+    finally:
+        ensemble._reduce = reduce
+    return {
+        "visit": f"{os.path.basename(HEADLINE)}, {n_exp} exposures, "
+                 f"{n_mc} realisations, chunk {CHUNK}",
+        "ensemble": full, "simulation_only": sim,
+        "extraction_share_of_wall":
+            1.0 - min(sim["wall_s"]) / min(full["wall_s"]),
+        "extraction_share_of_device_busy":
+            1.0 - sim["device_busy_ms"] / full["device_busy_ms"],
     }
 
 
@@ -361,6 +442,8 @@ def main(argv: list[str] | None = None) -> int:
     routes = {"whole_exposure": profile_route(obs, True),
               "per_read": profile_route(obs, False)}
     obs.static = dataclasses.replace(obs.static, fused_reads=True)
+    print("profiling the Monte-Carlo ensemble")
+    routes["ensemble"] = profile_ensemble()
     if args.parent:
         print(f"profiling the per-read route of {args.parent}")
         routes["parent_per_read"] = _profile_other(args.parent)

@@ -19,11 +19,12 @@ routes that draw the same random numbers:
     full-frame window (``band_px = 0``, W = S, as the direct image uses)
     goes through it too.
   * ``fused_reads=False``: one call per emitted read (NSAMP + 1 per
-    chunk; read 0 is a read with zero entries). The band is Poisson-
-    sampled in torch first; then the banded read step runs, or, with the
-    band off and IPC off, the full-frame read step on the band plus the
-    cosmic-ray hits. With the band off and IPC on, the banded step runs
-    at W = S, y0 = 0.
+    chunk; read 0 is a read with zero entries). The banded read step
+    takes the expected band and Poisson-samples it itself, on the
+    whole-exposure kernel's counters. With the band off and IPC off the
+    full-frame read step runs instead, on the band sampled in torch
+    (``sample_band``) plus the cosmic-ray hits; with the band off and IPC
+    on, the banded step runs at W = S, y0 = 0.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
 ``exact_poisson``, unstable (RTS) pixels, ``extra_beams`` and the

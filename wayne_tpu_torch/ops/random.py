@@ -34,6 +34,7 @@ TAG_CR_HIT = 17        # cosmic-ray positions and charges
 TAG_BIAS_DRIFT = 18    # per-read per-amplifier bias drift
 TAG_SSV_WALK = 19      # random-walk scan-speed variation steps
 TAG_SEED = 20          # exposure seed words from (visit seed, index)
+TAG_MC_SEED = 21       # seed words from (root seed, realisation, exposure)
 
 T_EXACT = 3.0          # below: exact inverse transform (12 terms)
 _T_GAUSS = 100.0       # above: plain Gaussian; between: Cornish-Fisher
@@ -95,6 +96,24 @@ def seed_words(seed: int, index: torch.Tensor) -> torch.Tensor:
     w0, w1, _, _ = philox4x32(seed & _MASK32, (seed >> 32) & _MASK32,
                               index, 0, TAG_SEED, 0)
     words = torch.stack([w0, w1], dim=-1)
+    return _int32(words)
+
+
+def mc_seed_words(seed: int, m: torch.Tensor, e: torch.Tensor
+                  ) -> torch.Tensor:
+    """(..., 2) int32 seed words of exposure ``e`` of Monte-Carlo
+    realisation ``m`` (GLOBAL index; ``m`` and ``e`` broadcast): one Philox
+    block keyed by the root seed, counter (m, e, TAG_MC_SEED). The port's
+    counterpart of ``fold_in(fold_in(PRNGKey(seed), m), e)``: realisation m
+    draws the same noise however a run is chunked."""
+    m = torch.as_tensor(m, dtype=torch.int64)
+    w0, w1, _, _ = philox4x32(seed & _MASK32, (seed >> 32) & _MASK32,
+                              m, e, TAG_MC_SEED, 0)
+    return _int32(torch.stack([w0, w1], dim=-1))
+
+
+def _int32(words: torch.Tensor) -> torch.Tensor:
+    """uint32 words carried in int64 -> the same bits as int32."""
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 

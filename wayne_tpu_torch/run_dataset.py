@@ -1,0 +1,106 @@
+"""Command-line entry point for Monte-Carlo dataset generation (counterpart
+of ``python -m wayne_tpu.run_dataset``).
+
+Usage:
+    python -m wayne_tpu_torch.run_dataset -p pars.yml -o dataset_dir \\
+        --n-mc 1000 [--chunk-mc 16] [--rp-sigma 0.002] [--seed 0] [--cpu]
+
+Each realisation reuses the planned visit (pointing drift, transit timing)
+with independent noise; ``--rp-sigma`` also sweeps the continuum Rp/Rs per
+realisation (Gaussian around the configured value) and stores it as a
+label. Output: ``chunk_XXXX.npz`` files of extracted spectra and labels and
+a ``manifest.json``; a re-run resumes at the first missing chunk.
+
+Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
+``--recover`` (ROADMAP Queue A8) and ``--fp-sigma`` (eclipse light, Queue
+A7) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="wayne_tpu_torch.run_dataset",
+        description="Generate a labelled Monte-Carlo spectral dataset "
+                    "(PyTorch port of wayne_tpu).")
+    parser.add_argument("-p", "--parameter-file", required=True)
+    parser.add_argument("-o", "--outdir", required=True)
+    parser.add_argument("--n-mc", type=int, required=True,
+                        help="number of Monte-Carlo visit realisations")
+    parser.add_argument("--chunk-mc", type=int, default=16,
+                        help="realisations per device chunk / output file")
+    parser.add_argument("--rp-sigma", type=float, default=0.0,
+                        help="per-realisation Gaussian sweep of Rp/Rs")
+    parser.add_argument("--fp-sigma", type=float, default=0.0,
+                        help="per-realisation Gaussian sweep of the eclipse "
+                             "depth Fp/Fs (requires planet eclipse_depth; "
+                             "not ported yet)")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--raw-cr", action="store_true",
+                        help="keep simulated cosmic rays IN the spectra "
+                             "(training-realism datasets) instead of the "
+                             "default DQ-aware repair at extraction")
+    parser.add_argument("--recover", type=int, nargs="?", const=8,
+                        default=None, metavar="N_CHAN",
+                        help="also store recovered depth labels (not "
+                             "ported yet)")
+    parser.add_argument("--cpu", action="store_true",
+                        help="run the plain PyTorch path on the CPU")
+    args = parser.parse_args(argv)
+
+    if args.recover is not None:
+        raise NotImplementedError(
+            "run_dataset --recover is not ported to wayne_tpu_torch yet: "
+            "the depth fits come with the reduction pipeline (ROADMAP "
+            "Queue A8)")
+    if args.n_mc % args.chunk_mc:
+        parser.error("--n-mc must be a multiple of --chunk-mc")
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+
+    import numpy as np
+
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.parallel.dataset import generate_dataset
+
+    cfg = load_yaml(args.parameter_file)
+    obs = Observation(cfg, device="cpu" if args.cpu else None)
+    print(f"{cfg.grism} dataset on {obs.device}: {args.n_mc} realisations x "
+          f"{obs.plan.n_exposures} exposures ({cfg.subarray}^2, "
+          f"NSAMP={cfg.nsamp})")
+
+    overrides: dict = {}
+    labels = {}
+    if args.rp_sigma > 0.0:
+        rng = np.random.RandomState(args.seed)
+        rp = (cfg.planet.rp_over_rs
+              + args.rp_sigma * rng.standard_normal(args.n_mc)
+              ).astype(np.float32)
+        overrides["rp_over_rs"] = np.broadcast_to(
+            rp[:, None], (args.n_mc, cfg.n_lambda)).copy()
+        labels["rp"] = rp
+    if args.fp_sigma > 0.0:
+        if not obs.static.eclipse:
+            parser.error("--fp-sigma requires planet eclipse_depth or "
+                         "eclipse_file in the parameter file")
+        raise NotImplementedError(
+            "run_dataset --fp-sigma: eclipse / phase-curve light is not "
+            "ported to wayne_tpu_torch yet (ROADMAP Queue A7)")
+
+    manifest = generate_dataset(
+        obs.scenes, obs.tables, obs.static, args.outdir,
+        n_mc=args.n_mc, chunk_mc=args.chunk_mc, seed=args.seed,
+        overrides=overrides or None, labels=labels or None, progress=print,
+        dq_aware=not args.raw_cr, device=obs.device)
+    print(f"dataset complete: {len(manifest['chunks'])} chunks in "
+          f"{args.outdir}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
