@@ -38,8 +38,29 @@ process per source, in parallel, linked into one library) and then:
    and the manifest are the JAX package's, B1 is held against its plain
    version bit for bit on the first ensemble batch's recorded arguments,
    and that batch's ``extract_spectra_cr`` on the card against the CPU at
-   rtol 1e-5; a second run gives exposures/s and visits/s. B1's launch
-   count in the JSON line adds this phase's to the main path's.
+   rtol 1e-5; a second run gives exposures/s and visits/s;
+6. drives the full-systematics visit at its own size:
+   ``examples/wasp43b_full_systematics.yml`` (512^2, NSAMP 15, 4 orbits,
+   persistence with the direct image, RECTE, a companion, starspots,
+   unstable pixels, IPC, bias drift): the noise-free fluence pass and the
+   persistence and RECTE set-up timed, ``simulate()`` (B1 once per chunk,
+   its exposures/s), B1 held against its plain version on the first
+   chunk's recorded arguments (a background that carries the persistence,
+   bands thinned by the traps, both checked), B2 against its plain version
+   on one read of that chunk through ``fused_reads=False``, the kernels per
+   chunk beside the headline visit's (``torch.profiler``), and
+   ``generate()`` end to end on a fresh Observation, its ima files read
+   back with NSAMP + 1 reads and DQ 32 on exactly the unstable pixels;
+7. ``simulate()`` of ``examples/wasp43b_g141_eclipse.yml`` (against the
+   same visit without planet light: bit-identical reads in exactly the
+   exposures the planet spends behind the star, more charge in every
+   other) and of ``examples/wasp43b_g141_phase_curve.yml`` (13 orbits),
+   then ``python -m wayne_tpu_torch.run_program`` (in process) on
+   ``examples/wasp43b_three_visit_program.yml`` to a temporary directory:
+   three visits, visit 1's ``carry_fluence.npy`` loaded as visit 2's prior
+   stimulus and visit 2's as visit 3's, B1 launches as planned.
+
+The JSON line's launch counts add up every phase's.
 
 Throughout, it times each kernel L2-warm and L2-cold (``device_ms``; the
 JSON line takes the cold time), its plain version and ``simulate()`` on
@@ -55,6 +76,8 @@ needs a CUDA card and the repository around it, and fails without either.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
@@ -65,6 +88,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = os.path.join(HERE, "examples", "wasp43b_g141_scan.yml")
+FULL = os.path.join(HERE, "examples", "wasp43b_full_systematics.yml")
+ECLIPSE = os.path.join(HERE, "examples", "wasp43b_g141_eclipse.yml")
+PHASE = os.path.join(HERE, "examples", "wasp43b_g141_phase_curve.yml")
+PROGRAM = os.path.join(HERE, "examples", "wasp43b_three_visit_program.yml")
 ORBITS = 1                  # the headline visit cut to one orbit
 CHUNK = 8                   # exposures per readout launch
 H100_BYTES_S = 3.35e12      # HBM3 rate (NVIDIA data sheet, H100 SXM)
@@ -370,16 +397,17 @@ def small_lambda_warp_share(args) -> float:
     return float(hit.view(B, NR, S, -1, 32).any(-1).float().mean())
 
 
-def first_call(module, name: str, run) -> tuple:
-    """``run()``'s result and the arguments, by name, of the first call of
-    ``module.name`` during ``run()``."""
+def first_call(module, name: str, run, index: int = 0) -> tuple:
+    """``run()``'s result and the arguments, by name, of the call number
+    ``index`` (the first by default) of ``module.name`` during ``run()``."""
     import inspect
 
-    real, seen = getattr(module, name), []
+    real, seen, calls = getattr(module, name), [], [0]
 
     def record(*args, **kw):
-        if not seen:
+        if calls[0] == index:
             seen.append(inspect.signature(real).bind(*args, **kw).arguments)
+        calls[0] += 1
         return real(*args, **kw)
 
     setattr(module, name, record)
@@ -939,6 +967,299 @@ def phase_dataset(card: str) -> tuple[int, list[float]]:
     return b1, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the full-systematics visit at its own size
+# ---------------------------------------------------------------------------
+
+_STEP_FLAGS = ("poisson", "read_noise", "non_linearity", "bias",
+               "scalar_gain", "with_cr", "bg_poisson", "ipc")
+
+
+def kernels_in(fn) -> int:
+    """The CUDA kernels ``fn()`` launches (``torch.profiler``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                                # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def _synced(fn):
+    """(fn()'s result, its seconds on the host clock up to a synchronise)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_full_systematics(card: str) -> tuple[int, int, list[float]]:
+    """The full-systematics visit: set-up, simulate(), B1 and B2 held
+    against their plain versions on its first chunk, the kernels per chunk
+    and generate(). Returns (B1 launches, B2 launches, max abs errors)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import wayne_tpu_torch.ops.exposure as ex
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.io.ima import read_ima
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.pytree import tree_map
+
+    kernels = (ro.exposure_readout, ro.read_step_banded, ro.read_step)
+    cfg = load_yaml(FULL)
+    S, nr = cfg.subarray, cfg.nsamp + 1
+    print(f"phase 6: {os.path.relpath(FULL, HERE)} at its own size "
+          f"({S}^2, NSAMP={cfg.nsamp}, {cfg.n_orbits} orbits)")
+    obs = Observation(cfg)
+    n = obs.plan.n_exposures
+    n_chunks = math.ceil(n / CHUNK)
+    st = obs.static
+    check(st.noise.ipc and st.band_px > 0 and cfg.persistence.enabled
+          and cfg.recte.enabled and obs.scenes.companions is not None
+          and obs.scenes.spots is not None and obs.tables.rts_amp is not None,
+          f"{n} exposures, band W={st.band_px}, IPC, persistence, RECTE, "
+          f"{obs.scenes.companions.dx_px.shape[1]} companion, "
+          f"{obs.scenes.spots.radius.shape[1]} spots, "
+          f"{int((obs.tables.rts_amp > 0).sum())} unstable pixels")
+
+    for f in kernels:
+        f.launches = 0
+    _, t_fluence = _synced(lambda: obs._visit_fluence(CHUNK))
+    _, t_persist = _synced(lambda: obs._ensure_persistence(CHUNK))
+    _, t_recte = _synced(lambda: obs._ensure_recte(CHUNK))
+    setup = ro.exposure_readout.launches
+    persist, trap = obs.scenes.persist_rate, obs.scenes.trap_mult
+    check(setup == n_chunks + 1 and ro.read_step_banded.launches == 0,
+          f"set-up: {setup} B1 launches == {n_chunks} chunks of the "
+          "noise-free fluence pass + the ideal direct image")
+    check(tuple(persist.shape) == (n, S, S)
+          and bool(torch.isfinite(persist).all())
+          and float(persist.max()) > 0.0 and float(trap.min()) > 0.0
+          and float(trap.max()) <= 1.0 and float(trap.min()) < 1.0,
+          f"persist_rate {tuple(persist.shape)} up to "
+          f"{float(persist.max()):.4g} e-/s, trap_mult in "
+          f"[{float(trap.min()):.6f}, {float(trap.max()):.6f}]")
+
+    for f in kernels:
+        f.launches = 0
+    (res, recorded), t_first = _synced(
+        lambda: recorded_readout(lambda: obs.simulate(chunk=CHUNK)))
+    sim = ro.exposure_readout.launches
+    reads = res.reads_dn
+    check(tuple(reads.shape) == (n, nr, S, S)
+          and bool(torch.isfinite(reads).all())
+          and bool((reads[:, -1].double().sum((-2, -1))
+                    > reads[:, 0].double().sum((-2, -1))).all()),
+          f"simulate(): reads_dn {tuple(reads.shape)} finite, every "
+          "exposure's last read above its first")
+    check(sim == n_chunks and ro.read_step_banded.launches == 0,
+          f"simulate(): {sim} B1 launches == {n_chunks} chunks")
+    del res, reads
+    _, wall = _synced(lambda: obs.simulate(chunk=CHUNK))
+
+    # the first chunk's readout inputs carry the new physics
+    args, _ = recorded
+    sl = tree_map(lambda x: x[:CHUNK], obs.scenes)
+    t = obs.tables
+    want_bg = t.dark_map + (sl.sky_level[:, None, None] * t.sky_frame
+                            + sl.sky_he_level[:, None, None] * t.sky_he_frame)
+    want_bg = (want_bg * sl.trap_mult + sl.persist_rate) * t.active_mask
+    check(torch.allclose(args[4], want_bg, rtol=1e-6, atol=0),
+          "the first chunk's bg_rate is (sky + He + dark) x trap_mult + "
+          "persist_rate")
+    _, (no_trap, _) = recorded_readout(lambda: ex.simulate_exposure(
+        dataclasses.replace(sl, trap_mult=None), t, st))
+    bands, y0s = args[3][:, 1:], args[1][:, 1:]
+    rows = y0s.long()[..., None] + torch.arange(bands.shape[2],
+                                                device=bands.device)
+    check(torch.equal(bands, no_trap[3][:, 1:] * ex._gather_rows(
+        sl.trap_mult, rows)), "its bands are the trap-free bands x the "
+          "trap_mult rows, bit for bit")
+    errs = hold_recorded(ro, recorded, "phase 6", "full-systematics chunk")
+
+    # B2 on one read of the same chunk through the per-read route
+    per_read = dataclasses.replace(st, fused_reads=False)
+    ro.read_step_banded.launches = 0
+    _, call = first_call(ex, "read_step_banded",
+                         lambda: ex.simulate_exposure(sl, t, per_read),
+                         index=nr // 2)
+    b2 = ro.read_step_banded.launches
+    check(b2 == nr and call["read"] == nr // 2,
+          f"per-read chunk: {b2} B2 launches == {nr} reads")
+    arrays = {k: v for k, v in call.items() if k not in _STEP_FLAGS}
+    on = {k: v for k, v in call.items() if k in _STEP_FLAGS}
+    print(f"phase 6: B2 vs plain, read {call['read']} of the chunk, "
+          f"band {tuple(arrays['band'].shape)}, flags {on}")
+    errs += hold_against_plain(
+        lambda f: ro.read_step_banded(**arrays, **f)[::-1],
+        lambda f: banded_reference(**arrays, **f)[::-1], on,
+        "full-systematics read")
+    time_readout(ro, *recorded, "the full-systematics chunk", card)
+    print(f"timing [{card}]: read_step_banded kernel on read "
+          f"{call['read']} of the full-systematics chunk "
+          f"{times_line(kernel_times(lambda: ro.read_step_banded(**call), 50))}")
+
+    n_full = kernels_in(lambda: ex.simulate_exposure(sl, t, st))
+    head = headline_observation()[1]
+    n_head = kernels_in(lambda: ex.simulate_exposure(
+        tree_map(lambda x: x[:CHUNK], head.scenes), head.tables,
+        head.static))
+    del head
+    print(f"timing [{card}]: full systematics set-up: fluence pass "
+          f"{t_fluence:.3f} s, _ensure_persistence {t_persist:.3f} s, "
+          f"_ensure_recte {t_recte:.3f} s; simulate() {n} exposures in "
+          f"{wall:.3f} s = {n / wall:.2f} exposures/s (first call "
+          f"{t_first:.3f} s); {n_full} kernels per chunk of {CHUNK} "
+          f"(headline visit: {n_head})")
+
+    gen = Observation(cfg)
+    rts = ((gen.tables.rts_amp > 0) & (gen.tables.active_mask > 0)
+           ).cpu().numpy()
+    for f in kernels:
+        f.launches = 0
+    with tempfile.TemporaryDirectory() as out:
+        paths, t_gen = _synced(lambda: gen.generate(
+            out, chunk=CHUNK, progress=lambda s: None))
+        gen_launches = ro.exposure_readout.launches
+        check(len(paths) == n and gen_launches == 2 * n_chunks + 2,
+              f"generate(): {len(paths)} ima files, {gen_launches} B1 "
+              f"launches == 2 x {n_chunks} chunks + 2 direct images")
+        for p in (paths[0], paths[-1]):
+            hdr, r, _, dq = read_ima(p, with_dq=True)
+            check(hdr["NSAMP"] == nr and r.shape == (nr, S, S)
+                  and np.isfinite(r).all()
+                  and all(np.array_equal((d & 32) != 0, rts) for d in dq),
+                  f"{os.path.basename(p)}: NSAMP={hdr['NSAMP']}, DQ 32 on "
+                  f"exactly the {int(rts.sum())} unstable pixels of every "
+                  "read")
+    print(f"timing [{card}]: generate() of the full-systematics visit "
+          f"({n} exposures, set-up and FITS writes included) {t_gen:.3f} s "
+          f"= {n / t_gen:.2f} exposures/s")
+    return setup + sim + gen_launches, nr, errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: eclipse, phase curve and the three-visit program
+# ---------------------------------------------------------------------------
+
+def phase_eclipse_and_program(card: str) -> int:
+    """simulate() of the eclipse visit (against the same visit without
+    planet light) and of the phase-curve visit, then ``run_program`` on
+    the three-visit program. Returns B1's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import wayne_tpu_torch.observation as observation
+    from wayne_tpu_torch import run_program
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.ops.kepler import projected_separation
+    from wayne_tpu_torch.ops.transit import eclipse_visibility
+
+    launches = 0
+
+    def simulate(cfg, label):
+        nonlocal launches
+        obs = Observation(cfg)
+        n = obs.plan.n_exposures
+        ro.exposure_readout.launches = 0
+        res, wall = _synced(lambda: obs.simulate(chunk=CHUNK))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        check(tuple(res.reads_dn.shape)[:2] == (n, cfg.nsamp + 1)
+              and bool(torch.isfinite(res.reads_dn).all())
+              and b1 == math.ceil(n / CHUNK),
+              f"{label}: simulate() reads_dn {tuple(res.reads_dn.shape)} "
+              f"finite, {b1} B1 launches; {n / wall:.2f} exposures/s "
+              f"[{card}] (first call, {wall:.3f} s)")
+        white = (res.reads_dn[:, -1] - res.reads_dn[:, 0]).double().sum(
+            (-2, -1))
+        return obs, white
+
+    cfg = load_yaml(ECLIPSE)
+    print(f"phase 7: {os.path.relpath(ECLIPSE, HERE)}, "
+          f"{os.path.relpath(PHASE, HERE)} and "
+          f"{os.path.relpath(PROGRAM, HERE)}")
+    obs, lit = simulate(cfg, "eclipse visit")
+    _, dark = simulate(dataclasses.replace(cfg, planet=dataclasses.replace(
+        cfg.planet, eclipse_depth=0.0)), "eclipse visit without planet light")
+    sc = obs.scenes
+    ends = sc.exp_start_s[:, None] + torch.tensor(
+        [0.0, obs.detector_exptime], device=sc.exp_start_s.device)
+    z, front = projected_separation(ends, sc.orbit)
+    hidden = (eclipse_visibility(z, front, sc.rp_over_rs[:, :1]) == 0.0
+              ).all(dim=1)
+    same = lit == dark
+    check(bool((same == hidden).all())
+          and bool((lit[~hidden] > dark[~hidden]).all())
+          and 0 < int(hidden.sum()) < len(hidden),
+          f"eclipse: the {int(hidden.sum())} exposures behind the star are "
+          f"bit-identical to the visit without planet light, the other "
+          f"{int((~hidden).sum())} hold more charge")
+    del obs, sc
+    simulate(load_yaml(PHASE), "phase-curve visit")
+
+    loaded = []
+    real = observation._load_fluence_map
+
+    def record(path):
+        loaded.append(path)
+        return real(path)
+
+    observation._load_fluence_map = record
+    ro.exposure_readout.launches = 0
+    said = io.StringIO()
+    try:
+        with tempfile.TemporaryDirectory() as out:
+            with contextlib.redirect_stdout(said):
+                rc, wall = _synced(lambda: run_program.main(
+                    ["-p", PROGRAM, "-o", out, "--chunk", str(CHUNK)]))
+            lines = said.getvalue().splitlines()
+            print(f"  run_program: {lines[0]} ... {lines[-1]}")
+            with open(os.path.join(out, "program_summary.json")) as fh:
+                summary = json.load(fh)
+            carries = [os.path.join(out, f"visit_{i:02d}",
+                                    "carry_fluence.npy") for i in range(3)]
+            n_files = [len([f for f in os.listdir(os.path.join(
+                out, v["dir"])) if f.endswith("_ima.fits")])
+                for v in summary["visits"]]
+            carry_ok = all(os.path.exists(c) for c in carries) and float(
+                np.load(carries[0]).max()) > 0.0
+    finally:
+        observation._load_fluence_map = real
+    cfg = load_yaml(PROGRAM)
+    n = Observation(cfg).plan.n_exposures
+    per_visit = 2 * math.ceil(n / CHUNK) + 2
+    b1 = ro.exposure_readout.launches
+    launches += b1
+    check(rc == 0 and len(summary["visits"]) == 3 and n_files == [n] * 3
+          and all("carry" in v for v in summary["visits"]) and carry_ok,
+          f"run_program: 3 visits of {n} exposures, each with its carry")
+    check(loaded == carries[:2],
+          "visit 1's carry_fluence.npy fed visit 2's persistence and visit "
+          "2's fed visit 3's")
+    check(b1 == 3 * per_visit,
+          f"run_program: {b1} B1 launches == 3 visits x ({per_visit}: "
+          "fluence pass, visit, two direct images)")
+    print(f"timing [{card}]: run_program 3 visits x {n} exposures "
+          f"({cfg.subarray}^2, NSAMP={cfg.nsamp}) in {wall:.3f} s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "wayne_tpu_torch")):
         print("chip_smoke.py: the wayne_tpu_torch package is not beside "
@@ -973,6 +1294,11 @@ def main() -> int:
     ds_launches, ds_errs = phase_dataset(card)
     launches += ds_launches
     whole["max_abs_err"] = max(whole["max_abs_err"], *ds_errs)
+    full_b1, full_b2, full_errs = phase_full_systematics(card)
+    launches += full_b1
+    per_read["read_step_banded"] += full_b2
+    whole["max_abs_err"] = max(whole["max_abs_err"], *full_errs)
+    launches += phase_eclipse_and_program(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

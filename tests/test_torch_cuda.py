@@ -453,3 +453,117 @@ def test_extract_spectra_cr_on_the_card_matches_cpu(card):
             None if rt is None else rt.cpu())
         torch.testing.assert_close(got.cpu(), want, rtol=1e-5,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# --- the visit-level physics -------------------------------------------------
+
+# a tiny visit with every systematic on: persistence (with the direct
+# image), RECTE, a companion 12 rows up in the band, starspots, unstable
+# pixels, IPC
+PHYSICS = dict(TINY, persistence=True, recte=True, unstable_pixel_frac=0.01,
+               companions=[{"dx_px": 8.0, "dy_px": 12.0,
+                            "temperature_k": 3200.0, "mag_j": 10.5}],
+               target={"spots": [{"lon_deg": -1.0, "lat_deg": 41.8,
+                                  "radius": 0.1, "temp_k": 3800.0}],
+                       "rotation_period_d": 15.6},
+               trends={"hook_amplitude": 0.0})
+
+
+def _recorded(module, name, run, index=0):
+    """``run()`` with ``module.name`` wrapped: the keyword arguments of its
+    call number ``index``."""
+    real, seen = getattr(module, name), []
+
+    def record(*args, **kw):
+        assert not args
+        seen.append(kw)
+        return real(**kw)
+
+    setattr(module, name, record)
+    try:
+        run()
+    finally:
+        setattr(module, name, real)
+    return seen[index]
+
+
+def _physics_observation(noise):
+    obs = Observation(config_from_dict(dict(PHYSICS, noise=noise)),
+                      device="cuda")
+    obs._ensure_persistence(4)
+    obs._ensure_recte(4)
+    assert float(obs.scenes.persist_rate.max()) > 0.0
+    assert float(obs.scenes.trap_mult.min()) < 1.0
+    assert obs.static.band_px and obs.static.noise.ipc
+    return obs
+
+
+@pytest.mark.cuda
+def test_b1_and_b2_match_plain_on_a_visit_physics_chunk(card):
+    """B1 and B2 against their plain versions on the main path's own
+    arguments for a chunk whose background carries persistence, whose
+    bands carry the RECTE thinning and a companion: bit for bit, noise on
+    (IPC on, as the visit has it) and off."""
+    import wayne_tpu_torch.ops.exposure as ex
+
+    obs = _physics_observation({"preset": "all", "ipc": True})
+    kw = _recorded(ex, "exposure_readout", lambda: obs.simulate(chunk=4))
+    assert kw["bg_poisson"] and kw["ipc"]
+    for noise in (True, False):
+        f = dict(kw, poisson=noise, read_noise=noise)
+        got, cum = exposure_readout(**f)
+        want, cum_w = exposure_readout_plain(**f)
+        assert torch.equal(got, want) and torch.equal(cum, cum_w), noise
+
+    obs.static = dataclasses.replace(obs.static, fused_reads=False)
+    nr = obs.static.nsamp + 1
+    kw = _recorded(ex, "read_step_banded", lambda: obs.simulate(chunk=4),
+                   index=nr // 2)
+    assert kw["read"] == nr // 2 and float(kw["band"].max()) > 0.0
+    for noise in (True, False):
+        f = dict(kw, poisson=noise, read_noise=noise)
+        cum, dn = read_step_banded(**f)
+        cum_w, dn_w = _banded_reference(**f)
+        assert torch.equal(dn, dn_w) and torch.equal(cum, cum_w), noise
+
+
+@pytest.mark.cuda
+def test_visit_physics_on_the_card_matches_cpu(card):
+    """The tiny every-systematic visit, the deterministic effects on, on
+    the card and on the CPU (the unstable pixels' states come from the
+    same Philox stream on both): the charge-memory maps and the reads
+    agree to the tolerance of tests/test_torch_observation.py."""
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        obs = Observation(config_from_dict(dict(PHYSICS,
+                                                noise=DETERMINISTIC)),
+                          device=dev)
+        res = obs.simulate(chunk=4)
+        outs[dev] = (res.reads_dn.cpu(), obs.scenes.persist_rate.cpu(),
+                     obs.scenes.trap_mult.cpu())
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=2e-5,
+                                   atol=max(1e-3, 5e-6 * float(want.max())))
+
+
+@pytest.mark.cuda
+def test_program_on_the_card(card, tmp_path):
+    """``run_program`` without ``--cpu`` runs every visit on the card: a
+    two-visit program whose second visit reads the first one's carry."""
+    import yaml
+
+    from wayne_tpu_torch.run_program import main as run_program
+
+    params = dict(TINY, program={"num_visits": 2}, persistence=True,
+                  noise={"preset": "all"})
+    yml = tmp_path / "prog.yml"
+    yml.write_text(yaml.safe_dump(params))
+    exposure_readout.launches = 0
+    assert run_program(["-p", str(yml), "-o", str(tmp_path / "out"),
+                        "--chunk", "4"]) == 0
+    # per visit: the fluence pass and the visit (2 chunks each), the
+    # direct image twice (its ideal stimulus and its product)
+    assert exposure_readout.launches == 2 * (2 + 2 + 2)
+    summary = (tmp_path / "out" / "program_summary.json").read_text()
+    assert summary.count('"carry"') == 2
+    assert (tmp_path / "out" / "visit_00" / "carry_fluence.npy").exists()

@@ -395,6 +395,46 @@ def test_run_dataset_unported_flags_raise(tmp_path):
         run_dataset(argv + ["--recover", "4"])
     with pytest.raises(SystemExit):            # no eclipse in the visit
         run_dataset(argv + ["--fp-sigma", "1e-4"])
-    yml.write_text(TINY_YAML + "planet:\n  eclipse_depth: 5.0e-4\n")
-    with pytest.raises(NotImplementedError, match="Queue A7"):
-        run_dataset(argv + ["--fp-sigma", "1e-4"])
+
+
+def test_jax_style_positional_mesh_cannot_switch_estimator():
+    """The JAX signature is (scenes, tables, cfg, mesh, ramp=...): a call
+    written for it either raises (a mesh) or returns the CDS spectra (None
+    in mesh's place), never up-the-ramp slopes."""
+    ens = mc_scenes(_visit_t(2), 1)
+    cds = simulate_ensemble_spectra(ens, TABLES_T, CFG_T, chunk=2)
+    mesh = make_mesh(jax.devices()[:1])
+    with pytest.raises(NotImplementedError, match="Queue A6"):
+        simulate_ensemble_spectra(ens, TABLES_T, CFG_T, mesh)
+    assert torch.equal(simulate_ensemble_spectra(ens, TABLES_T, CFG_T, None,
+                                                 chunk=2), cds)
+    with pytest.raises(TypeError):         # ramp is keyword-only
+        simulate_ensemble_spectra(ens, TABLES_T, CFG_T, None, True)
+    ramp = simulate_ensemble_spectra(ens, TABLES_T, CFG_T, ramp=True,
+                                     chunk=2)
+    assert not torch.equal(ramp, cds)
+
+
+def test_charge_memory_maps_stay_one_buffer_and_rts_warns():
+    """mc_scenes views the visit's persist_rate and trap_mult (no copy per
+    realisation), realisations see the same maps, and active unstable
+    pixels warn that the column sums carry them unrepaired."""
+    visit = _visit_t(3)
+    maps = torch.rand((3, S, S), generator=torch.Generator().manual_seed(0))
+    visit = dataclasses.replace(visit, persist_rate=maps,
+                                trap_mult=1.0 - 0.01 * maps)
+    ens = mc_scenes(visit, 4)
+    for name in ("persist_rate", "trap_mult"):
+        leaf = getattr(ens, name)
+        assert leaf.shape == (4, 3, S, S) and leaf.stride(0) == 0
+        assert leaf.data_ptr() == getattr(visit, name).data_ptr()
+    noise_off = dataclasses.replace(CFG_T, noise=config_t.NoiseFlags.none())
+    sp = simulate_ensemble_spectra(ens, TABLES_T, noise_off, chunk=2)
+    assert torch.equal(sp[0], sp[3])
+    bare = simulate_ensemble_spectra(mc_scenes(_visit_t(3), 1), TABLES_T,
+                                     noise_off, chunk=2)
+    assert not torch.equal(sp[0], bare[0])
+    rts = dataclasses.replace(TABLES_T, rts_amp=torch.full((S, S), 0.05))
+    with pytest.warns(UserWarning, match="rts_amp"):
+        simulate_ensemble_spectra(mc_scenes(_visit_t(2), 1), rts,
+                                  noise_off, chunk=2)

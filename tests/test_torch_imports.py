@@ -41,7 +41,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.reduction", "wayne_tpu_torch.run_dataset",
                      "wayne_tpu_torch.parallel.ensemble",
                      "wayne_tpu_torch.parallel.dataset",
-                     "wayne_tpu_torch.parallel.torch_data"):
+                     "wayne_tpu_torch.parallel.torch_data",
+                     "wayne_tpu_torch.ops.spots",
+                     "wayne_tpu_torch.ops.persistence",
+                     "wayne_tpu_torch.ops.recte",
+                     "wayne_tpu_torch.program",
+                     "wayne_tpu_torch.run_program"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -62,7 +67,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from wayne_tpu_torch.device import resolve_device
     from wayne_tpu_torch.observation import Observation
     from wayne_tpu_torch.parallel.dataset import generate_dataset
+    from wayne_tpu_torch.program import Program
     from wayne_tpu_torch.run_dataset import main as run_dataset
+    from wayne_tpu_torch.run_program import main as run_program
     from wayne_tpu_torch.run_visit import main
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -80,6 +87,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                      "--n-mc", "2", "--chunk-mc", "2"])
     with pytest.raises(RuntimeError, match="CUDA"):
         generate_dataset(None, None, None, str(tmp_path / "ds"), n_mc=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Program(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_program(["-p", str(yml), "-o", str(tmp_path / "prog")])
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -86,9 +86,14 @@ def test_build_scenes_matches_jax():
 
 
 def test_unported_visit_features_raise():
-    with pytest.raises(NotImplementedError, match="persistence"):
-        Observation(config_from_dict(dict(TINY, persistence=True)),
-                    device="cpu")
+    """The visit-level physics runs; real calibration products (the YAML
+    ``calibration:`` block) still raise, naming their ROADMAP item."""
+    Observation(config_from_dict(dict(TINY, persistence=True, recte=True)),
+                device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7e"):
+        Observation(config_from_dict(dict(
+            TINY, calibration={"sensitivity_file": "sens.txt"})),
+            device="cpu")
 
 
 def test_run_visit_cli_on_cpu(tmp_path, capsys):

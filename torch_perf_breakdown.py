@@ -22,10 +22,9 @@ main path gives its first chunk and on ``chip_smoke.py``'s synthetic ones,
 noise on and off, and the per-read steps at read 8 — in the port's build
 and the build of DIR's sources, taken in turn ``--rounds`` times; each
 build's share of pixels identical to the plain version beside it, and
-each build's registers and spills (``ptxas -v``). Each build's banded
-step gets the band its contract expects: the parent's (before the
-in-kernel draw) a band sampled by ``sample_band``, timed also with that
-sampling. Last, counts the SASS
+each build's registers and spills (``ptxas -v``). Both builds' banded steps
+take the expected band and draw it themselves (a parent whose banded step
+takes a sampled band instead is not comparable). Last, counts the SASS
 instructions that one Philox block adds to a kernel (``cuobjdump -sass``
 of a probe built with the port's flags) and fails unless they are
 ``chip_smoke.COSTS["philox"]``. Prints one JSON object (and writes it to
@@ -47,9 +46,9 @@ import time
 import torch
 
 from chip_smoke import (
-    CHUNK, COSTS, HEADLINE, HERE, NOISE_ON, card_line, cuda_ms, device_ms,
-    headline_observation,
-    readout_inputs, recorded_readout, step_args, step_reads,
+    CHUNK, COSTS, HEADLINE, HERE, NOISE_ON, banded_reference, card_line,
+    cuda_ms, device_ms, headline_observation, readout_inputs,
+    recorded_readout, step_args, step_reads,
 )
 
 
@@ -140,8 +139,8 @@ def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
     build, taken in turn ``rounds`` times, L2-
     warm and L2-cold: the whole-exposure readout on each of ``inputs``
     (name -> (args, flags)) with the noise on and off, and the per-read
-    steps on ``steps`` (name -> (wrapper, kwargs for the port, kwargs for
-    the parent, plain version on the parent's kwargs)); then each build's
+    steps on ``steps`` (name -> (wrapper, kwargs, plain reference on the
+    same kwargs)); then each build's
     share of pixels identical to the plain version and its registers and
     spills."""
     sources = {"port": (ro._CSRC, ro.NVCC_FLAGS)}
@@ -170,16 +169,8 @@ def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
                         kw = dict(flags, **extra)
                         timed(b, f"{i}/{m}",
                               lambda: ro.exposure_readout(*args, **kw), 20)
-                for name, (step, kw, kw_parent, _) in steps.items():
-                    kw = kw_parent if b == "parent" else kw
+                for name, (step, kw, _) in steps.items():
                     timed(b, name, lambda: step(**kw), 50)
-                if b == "parent":
-                    # the parent's route drew the band in torch first: some
-                    # 600 launches, which the host paces (cuda_ms)
-                    step, kw, _, _ = steps["read_step_banded"]
-                    out[b].setdefault("read_step_banded+sample_band/paced",
-                                      []).append(cuda_ms(
-                        lambda: step(**dict(kw, band=_sampled(kw))), 10))
         for b, lib in builds.items():
             print(f"checking {b} against the plain versions")
             ro._lib = lib
@@ -192,9 +183,9 @@ def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
                     check[f"{i}/{m}"] = {
                         "identical_share": float((got == want).float().mean()),
                         "max_abs_err_dn": float((got - want).abs().max())}
-            for name, (step, kw, kw_parent, plain) in steps.items():
-                cum, got = step(**(kw_parent if b == "parent" else kw))
-                cum_w, want = plain(**kw_parent)
+            for name, (step, kw, plain) in steps.items():
+                cum, got = step(**kw)
+                cum_w, want = plain(**kw)
                 check[name] = {
                     "identical_share": float((got == want).float().mean()),
                     "max_abs_err_dn": float((got - want).abs().max()),
@@ -204,12 +195,6 @@ def _kernel_builds(ro, inputs: dict, steps: dict, parent: str | None,
     finally:
         ro._lib = builds["port"]
     return out
-
-
-def _sampled(kw: dict):
-    """The banded step's band as ``sample_band`` draws it for ``kw``."""
-    from wayne_tpu_torch.ops.readout import sample_band
-    return sample_band(kw["seed"], kw["read"], kw["y0"], kw["band"])
 
 
 def profile_route(obs, fused: bool) -> dict:
@@ -459,9 +444,8 @@ def main(argv: list[str] | None = None) -> int:
                                          cfg.samp_seq, cfg.nsamp, S)),
                       NOISE_ON)}
     # the per-read steps at read 8 of the synthetic chunk, noise on; the
-    # parent's banded step takes its band sampled. The banded step also
-    # with IPC on, and without hits or with a zero band, which splits its
-    # time.
+    # banded step also with IPC on, and without hits or with a zero band,
+    # which splits its time
     syn, k = inputs["synthetic"][0], NR // 2
     _, cums = step_reads(ro.read_step_banded, None, syn, False, NOISE_ON)
     step_on = {f: v for f, v in NOISE_ON.items()
@@ -470,22 +454,18 @@ def main(argv: list[str] | None = None) -> int:
                             True), **NOISE_ON)
     full = dict(step_args(syn, k, cums[:, k - 1].contiguous(), True, True),
                 **step_on)
-    ipc = dict(banded, ipc=True)
-    no_cr = dict(banded, with_cr=False)
-    no_band = dict(banded, band=torch.zeros_like(banded["band"]))
     steps = {
-        "read_step_banded": (ro.read_step_banded, banded,
-                             dict(banded, band=_sampled(banded)),
-                             ro.read_step_banded_plain),
-        "read_step_banded/ipc": (ro.read_step_banded, ipc,
-                                 dict(ipc, band=_sampled(ipc)),
-                                 ro.read_step_banded_plain),
-        "read_step_banded/no_cr": (ro.read_step_banded, no_cr,
-                                   dict(no_cr, band=_sampled(no_cr)),
-                                   ro.read_step_banded_plain),
-        "read_step_banded/zero_band": (ro.read_step_banded, no_band, no_band,
-                                       ro.read_step_banded_plain),
-        "read_step": (ro.read_step, full, full, ro.read_step_plain)}
+        "read_step_banded": (ro.read_step_banded, banded, banded_reference),
+        "read_step_banded/ipc": (ro.read_step_banded, dict(banded, ipc=True),
+                                 banded_reference),
+        "read_step_banded/no_cr": (ro.read_step_banded,
+                                   dict(banded, with_cr=False),
+                                   banded_reference),
+        "read_step_banded/zero_band": (
+            ro.read_step_banded,
+            dict(banded, band=torch.zeros_like(banded["band"])),
+            banded_reference),
+        "read_step": (ro.read_step, full, ro.read_step_plain)}
 
     out = {
         "card": card_line(), "device": torch.cuda.get_device_name(0),

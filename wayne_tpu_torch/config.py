@@ -255,8 +255,8 @@ class TrendConfig:
 class PersistenceConfig:
     """Exposure-to-exposure image persistence (YAML ``persistence:`` —
     ``true`` or a mapping of these fields). Beyond the reference, which
-    models only the within-orbit charge-trapping ramp (hook trend).
-    Parsed here; the port's simulation does not run it yet (raises)."""
+    models only the within-orbit charge-trapping ramp (hook trend);
+    ops/persistence.py."""
 
     enabled: bool = False
     amplitude_e_s: float = 0.3      # A: release rate of a saturated pixel
@@ -289,8 +289,7 @@ class RecteConfig:
     ``true`` or a mapping of these fields). A physically-motivated
     alternative to the parametric hook trend: two trap populations per
     pixel capture and release charge following the illumination history
-    (Zhou et al. 2017, AJ 153, 243). Parsed here; the port's simulation
-    does not run it yet (raises). When enabled,
+    (Zhou et al. 2017, AJ 153, 243); ops/recte.py. When enabled,
     disable the parametric hook (``trends: {hook_amp: 0}``) unless you
     deliberately want both ramps stacked."""
 

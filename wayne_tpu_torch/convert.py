@@ -15,11 +15,13 @@ import torch
 
 from wayne_tpu_torch.calibration import Tables
 from wayne_tpu_torch.ops.kepler import OrbitParams
-from wayne_tpu_torch.scene import Scene
+from wayne_tpu_torch.ops.spots import SpotParams
+from wayne_tpu_torch.scene import CompanionParams, Scene
 from wayne_tpu_torch.trends import TrendParams
 
-# Optional JAX Scene leaves whose physics the port does not carry yet.
-_UNPORTED_SCENE = ("persist_rate", "trap_mult", "spots", "companions")
+# Nested dataclass leaves of a Scene, by field name.
+_NESTED = {"orbit": OrbitParams, "trends": TrendParams, "spots": SpotParams,
+           "companions": CompanionParams}
 
 
 def numpy_leaves(obj) -> dict:
@@ -61,18 +63,12 @@ def seed_from_key(key: np.ndarray) -> np.ndarray:
 def scenes_from_numpy(leaves: dict, device: torch.device | str) -> Scene:
     """The port's batched Scene from a JAX Scene's leaves (batched along
     axis 0; the ``key`` leaf holds raw key words (N, 2))."""
-    for name in _UNPORTED_SCENE:
-        if leaves.get(name) is not None:
-            raise NotImplementedError(
-                f"Scene.{name} is not ported to wayne_tpu_torch yet")
-    kw = {k: v for k, v in leaves.items()
-          if k not in _UNPORTED_SCENE and k != "key"}
-    kw["orbit"] = OrbitParams(**{k: _tensor(v, device)
-                                 for k, v in kw["orbit"].items()})
-    kw["trends"] = TrendParams(**{k: _tensor(v, device)
-                                  for k, v in kw["trends"].items()})
+    kw = {k: v for k, v in leaves.items() if k != "key"}
     for k, v in kw.items():
         if isinstance(v, np.ndarray):
             kw[k] = _tensor(v, device)
+        elif isinstance(v, dict):
+            kw[k] = _NESTED[k](**{f: _tensor(a, device)
+                                  for f, a in v.items()})
     kw["seed"] = _tensor(seed_from_key(leaves["key"]), device, torch.int32)
     return Scene(**kw)

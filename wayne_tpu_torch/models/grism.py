@@ -46,7 +46,7 @@ def make_calibrated_grism(cfg, device: torch.device | str = "cpu") -> Grism:
     if products.any_set():
         raise NotImplementedError(
             "real calibration products (calibration: block) are not "
-            "ported to wayne_tpu_torch yet (ROADMAP Queue A7)")
+            "ported to wayne_tpu_torch yet (ROADMAP Queue A item 7e)")
     return make_grism(cfg.grism, subarray=cfg.subarray,
                       n_lambda=cfg.n_lambda, samp_seq=cfg.samp_seq,
                       nsamp=cfg.nsamp, device=device,

@@ -11,12 +11,18 @@ on one writer thread.
 Checkpoint/resume: each exposure lands in its own file, so an interrupted
 visit resumes by skipping exposures whose outputs already exist.
 
-Not ported yet (ROADMAP): companions, starspots, persistence, RECTE,
-``mesh`` / multi-GPU sharding and ``generate(debug=True)``.
+The visit-level physics rides the Scene: starspots and companion field
+sources from the YAML, and the charge-memory maps (persistence, RECTE)
+computed once per Observation from one noise-free pass of the visit
+before the first chunk.
+
+Not ported yet (ROADMAP): ``mesh`` / multi-GPU sharding and
+``generate(debug=True)``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import time
@@ -30,8 +36,11 @@ import torch
 from wayne_tpu_torch.calibration import (
     Tables, imaging_tables, nonlin_fw_deficit, sequence_tables_scope,
 )
-from wayne_tpu_torch.config import ExposureStatic, NoiseFlags, ObservationConfig
+from wayne_tpu_torch.config import (
+    ExposureStatic, NoiseFlags, ObservationConfig, StarConfig,
+)
 from wayne_tpu_torch.device import resolve_device
+from wayne_tpu_torch.io.fits import read_fits
 from wayne_tpu_torch.io.ima import (
     cr_dq_planes, default_primary_header, saturation_dq, static_dq_plane,
     write_ima,
@@ -41,11 +50,17 @@ from wayne_tpu_torch.models.planet import Planet
 from wayne_tpu_torch.models.stellar import Star
 from wayne_tpu_torch.ops.dispersion import trace_params, trace_y, wl_to_x
 from wayne_tpu_torch.ops.exposure import ExposureResult, simulate_exposure
+from wayne_tpu_torch.ops.persistence import visit_persistence_rates
 from wayne_tpu_torch.ops.random import seed_words
-from wayne_tpu_torch.ops.visit import pad_scenes, simulate_visit
+from wayne_tpu_torch.ops.recte import visit_trap_maps
+from wayne_tpu_torch.ops.spots import SpotParams
+from wayne_tpu_torch.ops.visit import (
+    pad_scenes, simulate_visit, visit_fluence_stack,
+)
 from wayne_tpu_torch.pytree import tree_map
-from wayne_tpu_torch.scene import Scene
+from wayne_tpu_torch.scene import CompanionParams, Scene
 from wayne_tpu_torch.trends import TrendParams
+from wayne_tpu_torch.utils.spectra import blackbody_flam_um
 from wayne_tpu_torch.visit_plan import (
     HST_PERIOD_S, VisitPlan, plan_from_start_times, plan_visit,
 )
@@ -72,12 +87,110 @@ class HostChunk:
     saturated_frac: np.ndarray
 
 
-def _unported(cfg: ObservationConfig) -> list[str]:
-    todo = {"companions (ROADMAP Queue A7)": bool(cfg.companions),
-            "starspots (ROADMAP Queue A7)": bool(cfg.star.spots),
-            "persistence (ROADMAP Queue A7)": cfg.persistence.enabled,
-            "recte (ROADMAP Queue A7)": cfg.recte.enabled}
-    return [name for name, hit in todo.items() if hit]
+def _build_spots(star_cfg, wl_centers: np.ndarray):
+    """StarConfig.spots -> (lat, lon, radius, contrast (NS, NL), rot_omega)
+    as NumPy arrays, or None. Each spot mapping needs lon_deg, lat_deg,
+    radius (stellar radii) and either temp_k (blackbody ratio to the star
+    per wavelength bin) or a grey ``contrast``."""
+    if not star_cfg.spots:
+        return None
+    lat, lon, rad, contrast = [], [], [], []
+    star_bb = blackbody_flam_um(wl_centers, star_cfg.temperature_k)
+    for i, sp in enumerate(star_cfg.spots):
+        if not isinstance(sp, dict):
+            raise ValueError(f"star spots[{i}] must be a mapping, got "
+                             f"{type(sp).__name__}")
+        unknown = set(sp) - {"lon_deg", "lat_deg", "radius", "temp_k",
+                             "contrast"}
+        if unknown:
+            raise ValueError(f"unknown spot keys {sorted(unknown)} in "
+                             f"spots[{i}]")
+        try:
+            la = float(sp["lat_deg"])
+            lo = float(sp["lon_deg"])
+            r = float(sp["radius"])
+        except KeyError as exc:
+            raise ValueError(f"spots[{i}] missing key {exc}") from None
+        if not -90.0 <= la <= 90.0:
+            raise ValueError(f"spots[{i}] lat_deg {la} outside [-90, 90]")
+        if not 0.0 < r < 1.0:
+            raise ValueError(f"spots[{i}] radius {r} outside (0, 1)")
+        if "contrast" in sp:
+            c = np.full(wl_centers.size, float(sp["contrast"]))
+            if not 0.0 <= float(sp["contrast"]) <= 1.5:
+                raise ValueError(f"spots[{i}] contrast outside [0, 1.5]")
+        elif "temp_k" in sp:
+            t_spot = float(sp["temp_k"])
+            if t_spot <= 0.0:
+                raise ValueError(f"spots[{i}] temp_k must be positive")
+            c = blackbody_flam_um(wl_centers, t_spot) / star_bb
+        else:
+            raise ValueError(f"spots[{i}] needs temp_k or contrast")
+        lat.append(np.deg2rad(la))
+        lon.append(np.deg2rad(lo))
+        rad.append(r)
+        contrast.append(c)
+    rot = 0.0
+    if star_cfg.rotation_period_d:
+        rot = 2.0 * np.pi / (float(star_cfg.rotation_period_d) * 86400.0)
+    return (np.asarray(lat), np.asarray(lon), np.asarray(rad),
+            np.stack(contrast).astype(np.float32), rot)
+
+
+def _build_companions(cfg: ObservationConfig, wl_edges: np.ndarray):
+    """ObservationConfig.companions -> (dx (C,), dy (C,), flux (C, NL)) as
+    NumPy arrays, or None. Each mapping needs dx_px, dy_px and a spectrum
+    (temperature_k blackbody or spectrum_file) scaled by exactly one of
+    mag_j (its own J magnitude) or flux_scale (its J flux as a fraction of
+    the target's)."""
+    if not cfg.companions:
+        return None
+    allowed = {"dx_px", "dy_px", "temperature_k", "mag_j", "mag_J",
+               "flux_scale", "spectrum_file"}
+    dx, dy, flux = [], [], []
+    for i, c in enumerate(cfg.companions):
+        if not isinstance(c, dict):
+            raise ValueError(f"companions[{i}] must be a mapping, got "
+                             f"{type(c).__name__}")
+        unknown = set(c) - allowed
+        if unknown:
+            raise ValueError(f"unknown companion keys {sorted(unknown)} "
+                             f"in companions[{i}]; allowed: "
+                             f"{sorted(allowed)}")
+        try:
+            dx.append(float(c["dx_px"]))
+            dy.append(float(c["dy_px"]))
+        except KeyError as exc:
+            raise ValueError(
+                f"companions[{i}] missing key {exc}") from None
+        mag = c.get("mag_j", c.get("mag_J"))
+        scale = c.get("flux_scale")
+        if (mag is None) == (scale is None):
+            raise ValueError(f"companions[{i}] needs exactly one of "
+                             "mag_j or flux_scale (its brightness)")
+        if scale is not None:
+            if not float(scale) > 0.0:
+                raise ValueError(f"companions[{i}] flux_scale must be "
+                                 "positive")
+            mag = cfg.star.magnitude_j - 2.5 * np.log10(float(scale))
+        sc = StarConfig(name=f"companion{i}",
+                        temperature_k=float(
+                            c.get("temperature_k", cfg.star.temperature_k)),
+                        magnitude_j=float(mag),
+                        spectrum_file=c.get("spectrum_file"))
+        flux.append(Star(sc).flux_on_grid(wl_edges))
+    return np.asarray(dx), np.asarray(dy), np.stack(flux).astype(np.float32)
+
+
+def _load_fluence_map(path: str) -> np.ndarray:
+    """An (S, S) fluence map from .npy or FITS (the first image HDU), for
+    PersistenceConfig.prior_fluence_file."""
+    if path.endswith(".npy"):
+        return np.asarray(np.load(path), np.float32)
+    for _, data in read_fits(path):
+        if data is not None and np.ndim(data) == 2:
+            return np.asarray(data, np.float32)
+    raise ValueError(f"{path!r} contains no 2-D image HDU")
 
 
 class Observation:
@@ -90,10 +203,6 @@ class Observation:
     def __init__(self, cfg: ObservationConfig,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
-        missing = _unported(cfg)
-        if missing:
-            raise NotImplementedError(
-                "not ported to wayne_tpu_torch yet: " + ", ".join(missing))
         self.cfg = cfg
         with sequence_tables_scope(cfg.calibration.sequence_file):
             self.grism = make_calibrated_grism(cfg, self.device)
@@ -206,6 +315,8 @@ class Observation:
         rp = self.planet.rp_on_grid(wl_centers)
         fp = self.planet.fp_on_grid(wl_centers)
         ld = self.planet.ld_on_grid(wl_centers)   # (4,) or (NL, 4)
+        spots = _build_spots(cfg.star, wl_centers)
+        comps = _build_companions(cfg, wl_edges)
 
         ssv_phases = rng.uniform(0, 2 * np.pi, n)
         orbit_phase = (2.0 * np.pi
@@ -257,11 +368,84 @@ class Observation:
             seed=seed_words(cfg.seed, torch.arange(n)).to(dev),
             psf_scale=None if psf_scale is None else f32(psf_scale),
             sky_he_level=None if sky_he is None else f32(sky_he),
+            spots=None if spots is None else SpotParams(
+                *(rows(a) for a in spots)),
+            # companions ride the scan too: the direction-dependent
+            # effective exposure time scales them as it scales the target
+            companions=None if comps is None else CompanionParams(
+                dx_px=rows(comps[0]), dy_px=rows(comps[1]),
+                flux=f32(flux_fac[:, None, None] * comps[2][None])),
         )
+
+    # ------------------------------------------------------------------
+    def _visit_fluence(self, chunk: int = 8) -> torch.Tensor:
+        """The visit's noise-free fluence stack (N, S, S), computed at most
+        once and shared by persistence and RECTE (it does not depend on
+        the persist_rate / trap_mult leaves attached later: the pass runs
+        before either is set)."""
+        if getattr(self, "_fluence_stack", None) is None:
+            self._fluence_stack = visit_fluence_stack(
+                self.scenes, self.tables, self.static, chunk)
+        return self._fluence_stack
+
+    def _ensure_persistence(self, chunk: int = 8) -> None:
+        """Attach the per-exposure persistence maps to the Scenes, once,
+        when ``persistence:`` is enabled: stimuli are the prior
+        observation's fluence map (``prior_fluence_file``), the ideal
+        direct image and the visit's own fluence stack."""
+        pcfg = self.cfg.persistence
+        if not pcfg.enabled or self.scenes.persist_rate is not None:
+            return
+        S = self.static.subarray
+        extras: list[torch.Tensor] = []
+        ends: list[float] = []
+        if pcfg.prior_fluence_file:
+            prior = _load_fluence_map(pcfg.prior_fluence_file)
+            if prior.shape != (S, S):
+                raise ValueError(
+                    f"prior_fluence_file {pcfg.prior_fluence_file!r} is "
+                    f"{prior.shape}, expected ({S}, {S}) for this subarray")
+            extras.append(torch.as_tensor(prior, device=self.device))
+            ends.append(float(pcfg.prior_end_s))
+        if pcfg.direct_image:
+            # the direct image's undispersed PSF spot is the visit's
+            # strongest stimulus; only enabled background components
+            # arrive as charge, as in visit_fluence_stack
+            res_di, tab_di, _ = self.simulate_direct_image(ideal=True)
+            di_exptime = float(tab_di.read_times[-1])
+            bg_di = 0.0
+            if self.static.noise.sky:
+                bg_di = bg_di + self.scenes.sky_level[0] * tab_di.sky_frame
+            if self.static.noise.dark:
+                bg_di = bg_di + tab_di.dark_map
+            extras.append(res_di.ideal_e[0]
+                          + bg_di * di_exptime * tab_di.active_mask)
+            ends.append(float(self.scenes.exp_start_s[0]) - pcfg.di_gap_s)
+        rates = visit_persistence_rates(
+            self.scenes, self.tables, pcfg, self._visit_fluence(chunk),
+            extra_fluence=torch.stack(extras) if extras else None,
+            extra_end_s=ends or None)
+        self.scenes = dataclasses.replace(self.scenes, persist_rate=rates)
+
+    def _ensure_recte(self, chunk: int = 8) -> None:
+        """Attach the RECTE maps to the Scenes, once, when ``recte:`` is
+        enabled, after :meth:`_ensure_persistence`: the release joins
+        ``persist_rate``, the capture rides ``trap_mult``."""
+        rcfg = self.cfg.recte
+        if not rcfg.enabled or self.scenes.trap_mult is not None:
+            return
+        trap_mult, release = visit_trap_maps(
+            self.scenes, self.tables, rcfg, self._visit_fluence(chunk))
+        persist = self.scenes.persist_rate
+        self.scenes = dataclasses.replace(
+            self.scenes, trap_mult=trap_mult,
+            persist_rate=release if persist is None else persist + release)
 
     # ------------------------------------------------------------------
     def simulate(self, chunk: int = 8) -> ExposureResult:
         """Run the entire visit on the device; a batched ExposureResult."""
+        self._ensure_persistence(chunk)
+        self._ensure_recte(chunk)
         scenes, n = pad_scenes(self.scenes, chunk)
         out = simulate_visit(scenes, self.tables, self.static, chunk)
         return tree_map(lambda x: x[:n], out)
@@ -277,6 +461,8 @@ class Observation:
         os.makedirs(outdir, exist_ok=True)
         say = progress or (lambda s: log.info("%s", s))
         self._write_direct_image(outdir, resume=resume)
+        self._ensure_persistence(chunk)
+        self._ensure_recte(chunk)
 
         scenes, n = pad_scenes(self.scenes, chunk)
         read_times = self.tables.read_times.cpu().numpy().astype(np.float64)
@@ -434,6 +620,10 @@ class Observation:
         one.orbit_start_s = zero
         one.is_first_orbit = zero + 1.0
         one.scan_speed = zero
+        # the direct image opens the visit: no earlier stimulus glows into
+        # it and no trap deficit from exposures not yet taken
+        one.persist_rate = None
+        one.trap_mult = None
         one.seed = seed_words(cfg.seed, torch.tensor([_DIRECT_IMAGE_INDEX])
                               ).to(self.device)
         return simulate_exposure(one, tab, static), tab, static

@@ -4,11 +4,18 @@
 The front half is plain tensor work, batched over exposures (the JAX
 package's ``vmap`` written out as a leading dimension) and over reads:
 
-  1. the field-dependent trace and the wavelength -> column deposit X,
-  2. per read interval and subsegment: the transit light curve, SSV and
-     the visit trend, and the exact time-integrated moving-Gaussian row
-     profiles inside a row band around the scan position,
-  3. the splat, band = Y^T (counts X): two fp32 contractions (TF32 off).
+  1. the field-dependent trace and the wavelength -> column deposit X
+     (with ``extra_beams`` the 0th-order spot and the 2nd order fold into
+     X), and each companion's own trace and deposit,
+  2. per read interval and subsegment: the transit light curve (with the
+     planet's eclipse and phase-curve light, and the starspot delta), SSV
+     and the visit trend, and the exact time-integrated moving-Gaussian
+     row profiles inside a row band around the scan position,
+  3. the splat, band = Y^T (counts X): two fp32 contractions (TF32 off),
+     plus one contraction and one matmul per companion,
+  4. the response plane (flat, QE, unstable RTS pixels) and the RECTE
+     escape fraction ``trap_mult`` on the band; the background rate is sky
+     and dark thinned by ``trap_mult``, plus ``persist_rate``.
 
 The back half is the readout (:mod:`wayne_tpu_torch.ops.readout`: the
 CUDA kernels on the card, their plain versions on the CPU), by one of two
@@ -26,9 +33,8 @@ routes that draw the same random numbers:
     (``sample_band``) plus the cosmic-ray hits; with the band off and IPC
     on, the banded step runs at W = S, y0 = 0.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-``exact_poisson``, unstable (RTS) pixels, ``extra_beams`` and the
-eclipse/phase-curve light.
+Not ported yet, and raising NotImplementedError with its ROADMAP item:
+``exact_poisson``.
 """
 
 from __future__ import annotations
@@ -45,13 +51,14 @@ from wayne_tpu_torch.ops.dispersion import (
 )
 from wayne_tpu_torch.ops.psf import pixel_fractions_moving, pixel_fractions_static
 from wayne_tpu_torch.ops.random import (
-    TAG_BIAS_DRIFT, TAG_CR_COUNT, TAG_CR_HIT, TAG_SSV_WALK, box_muller,
-    fast_poisson, key_words, philox4x32, uniform24,
+    TAG_BIAS_DRIFT, TAG_CR_COUNT, TAG_CR_HIT, TAG_RTS, TAG_SSV_WALK,
+    box_muller, fast_poisson, key_words, philox4x32, uniform24,
 )
 from wayne_tpu_torch.ops.readout import (
     add_hits, exposure_readout, hit_ranks, read_step, read_step_banded,
     sample_band,
 )
+from wayne_tpu_torch.ops.spots import spot_delta
 from wayne_tpu_torch.ops.transit import transit_light_curve
 from wayne_tpu_torch.scene import Scene
 from wayne_tpu_torch.trends import (
@@ -70,17 +77,11 @@ class ExposureResult:
     cr_count: torch.Tensor       # (B, NSAMP) int32 hits per interval
 
 
-def _check_supported(tables: Tables, cfg: ExposureStatic) -> None:
-    todo = {
-        "exact_poisson (ROADMAP Queue A3)": cfg.exact_poisson,
-        "extra_beams (ROADMAP Queue A7)": cfg.extra_beams,
-        "eclipse / phase-curve light (ROADMAP Queue A7)": cfg.eclipse,
-        "unstable (RTS) pixels (ROADMAP Queue A3)": tables.rts_amp is not None,
-    }
-    missing = [name for name, hit in todo.items() if hit]
-    if missing:
+def _check_supported(cfg: ExposureStatic) -> None:
+    if cfg.exact_poisson:
         raise NotImplementedError(
-            "not ported to wayne_tpu_torch yet: " + ", ".join(missing))
+            "not ported to wayne_tpu_torch yet: exact_poisson (ROADMAP "
+            "Queue A item 5b)")
 
 
 def _cosmic_rays(seed: torch.Tensor, tables: Tables, cfg: ExposureStatic,
@@ -138,11 +139,32 @@ def _gather_rows(frame: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return frame[bidx.view((-1,) + (1,) * (rows.dim() - 1)), rows]
 
 
+def _rts_sign(seed: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, S, S) unstable-pixel state of each exposure, +1 (high) or -1
+    (low) with probability 1/2 each: the top bit of Philox counter
+    (row, col, TAG_RTS) of the exposure seed."""
+    dev = seed.device
+    k0, k1 = key_words(seed)
+    pix = torch.arange(S, device=dev)
+    w0, _, _, _ = philox4x32(k0[:, None, None], k1[:, None, None],
+                             pix[:, None], pix, TAG_RTS, 0)
+    return torch.where(w0 >= 2**31, 1.0, -1.0).to(torch.float32)
+
+
+def _deposit(tables: Tables, cfg: ExposureStatic, tp, sigma: torch.Tensor,
+             S: int):
+    """(X (B, NL, S), y_base (B, NL)) of one source's trace ``tp``."""
+    x_edges = wl_to_x(tables.wl_edges, tp)                      # (B, NL+1)
+    X = (x_deposit_matrix_gaussian(x_edges, S, sigma) if cfg.x_psf
+         else x_deposit_matrix(x_edges, S))                     # (B, NL, S)
+    return X, trace_y(wl_to_x(tables.wl_centers, tp), tp)
+
+
 def simulate_exposure(scene: Scene, tables: Tables,
                       cfg: ExposureStatic) -> ExposureResult:
     """Simulate a batch of exposures (``scene`` leaves carry a leading
     exposure dimension B). See the module docstring for the pipeline."""
-    _check_supported(tables, cfg)
+    _check_supported(cfg)
     dev = tables.device
     S, K, R = cfg.subarray, cfg.n_sub, cfg.nsamp
     B = scene.n
@@ -154,16 +176,42 @@ def simulate_exposure(scene: Scene, tables: Tables,
     tp = trace_params(tables, scene.x_ref, scene.y_ref)
     sigma = (tables.psf_sigma.expand(B, -1) if scene.psf_scale is None
              else tables.psf_sigma * scene.psf_scale[:, None])  # (B, NL)
-    x_edges = wl_to_x(tables.wl_edges, tp)                     # (B, NL+1)
-    X = (x_deposit_matrix_gaussian(x_edges, S, sigma) if cfg.x_psf
-         else x_deposit_matrix(x_edges, S))                    # (B, NL, S)
-    y_base = trace_y(wl_to_x(tables.wl_centers, tp), tp)       # (B, NL)
+    X, y_base = _deposit(tables, cfg, tp, sigma, S)
+    if cfg.extra_beams:
+        # aXe beams B/C on the +1st order's trace row and scan motion: the
+        # 0th-order spot at x_ref + beam0_dx (linear split over two
+        # columns) and the 2nd order (dispersion doubled about x_ref) fold
+        # into X as extra deposit.
+        grid = torch.arange(S, dtype=f32, device=dev)
+        x_ref = tp.x_ref[:, None]                                   # (B, 1)
+        hat = torch.clamp_min(
+            1.0 - torch.abs(x_ref + tables.beam0_dx - grid), 0.0)   # (B, S)
+        x_edges = wl_to_x(tables.wl_edges, tp)
+        X2 = x_deposit_matrix(x_ref + 2.0 * (x_edges - x_ref), S)
+        X = X + tables.beam0_rel * hat[:, None, :] + tables.beam2_rel * X2
 
-    # Photon response: flat (optional) x reference-pixel mask x QE.
+    # Companion field sources: each disperses from its own field position
+    # and carries no transit or spot signal (time-separable in the splat).
+    comps = []
+    if scene.companions is not None:
+        cp = scene.companions
+        dlam = torch.diff(tables.wl_edges)
+        for i in range(cp.dx_px.shape[-1]):
+            tp_c = trace_params(tables, scene.x_ref + cp.dx_px[:, i],
+                                scene.y_ref + cp.dy_px[:, i])
+            X_c, y_c = _deposit(tables, cfg, tp_c, sigma, S)
+            comps.append((X_c, y_c,
+                          cp.flux[:, i] * tables.sensitivity * dlam))
+
+    # Photon response: flat (optional) x reference-pixel mask x QE, and
+    # the unstable pixels' per-exposure high/low state.
     response = tables.active_mask
     if flags.flat:
         response = flat_plane(tables, tp) * tables.active_mask
     response = (response * tables.qe_map).expand(B, S, S)
+    if tables.rts_amp is not None:
+        response = response * (1.0 + tables.rts_amp
+                               * _rts_sign(scene.seed, S))
     gain_div = tables.gain_map if flags.gain_variations else tables.gain
 
     bg_rate = torch.zeros((B, S, S), dtype=f32, device=dev)
@@ -173,10 +221,16 @@ def simulate_exposure(scene: Scene, tables: Tables,
             bg_rate = bg_rate + col(scene.sky_he_level) * tables.sky_he_frame
     if flags.dark:
         bg_rate = bg_rate + tables.dark_map
+    if scene.trap_mult is not None:
+        # RECTE capture thins the expected sky + dark (a thinned Poisson
+        # process is Poisson); the release rides in persist_rate unthinned
+        bg_rate = bg_rate * scene.trap_mult
+    if scene.persist_rate is not None:
+        bg_rate = bg_rate + scene.persist_rate
     bg_rate = bg_rate * tables.active_mask
-    # dark and sky off: the background is exactly zero and Poisson(0) = 0,
-    # so the readout skips its sampler
-    has_bg = flags.sky or flags.dark
+    # no sky, dark or persistence: the background is exactly zero and
+    # Poisson(0) = 0, so the readout skips its sampler
+    has_bg = flags.sky or flags.dark or scene.persist_rate is not None
 
     # --- every read interval at once: (B, R, K) subsegments --------------
     read_times = tables.read_times
@@ -188,9 +242,15 @@ def simulate_exposure(scene: Scene, tables: Tables,
     rate0 = (scene.stellar_flux * tables.sensitivity
              * torch.diff(tables.wl_edges))                         # (B, NL)
     times_abs = col(scene.exp_start_s) + t_mid                      # (B, R, K)
-    lc = transit_light_curve(times_abs.reshape(B, R * K), scene.orbit,
-                             scene.rp_over_rs, scene.ld, cfg.transit_quad
-                             ).reshape(B, R, K, -1)                 # (B,R,K,NL)
+    t_flat = times_abs.reshape(B, R * K)
+    lc = transit_light_curve(
+        t_flat, scene.orbit, scene.rp_over_rs, scene.ld, cfg.transit_quad,
+        fp_over_fs=scene.fp_over_fs if cfg.eclipse else None,
+        phase_amp=scene.phase_amp, phase_offset_rad=scene.phase_offset)
+    if scene.spots is not None:
+        lc = lc + spot_delta(t_flat, scene.orbit, scene.rp_over_rs,
+                             scene.ld, scene.spots)
+    lc = lc.reshape(B, R, K, -1)                                    # (B,R,K,NL)
     factor = torch.ones((B, R, K), dtype=f32, device=dev)
     if flags.ssv and cfg.scan:
         e = t_edges.expand(B, R, K + 1)
@@ -215,7 +275,10 @@ def simulate_exposure(scene: Scene, tables: Tables,
     # --- the row band of each read: [y0, y0 + W), 8-aligned ---------------
     if band:
         margin = 5.0 * torch.amax(sigma, dim=-1) + 1.0
-        y_band_lo = torch.amin(y_base, dim=-1) - margin              # (B,)
+        y_min = torch.amin(y_base, dim=-1)
+        for _, y_c, _ in comps:          # the band covers companion traces
+            y_min = torch.minimum(y_min, torch.amin(y_c, dim=-1))
+        y_band_lo = y_min - margin                                   # (B,)
         if cfg.scan:
             off = col(scene.scan_speed) * t_edges                    # (B,R,K+1)
             off_lo = torch.minimum(off[..., 0], off[..., -1])
@@ -232,20 +295,30 @@ def simulate_exposure(scene: Scene, tables: Tables,
                + y0.to(f32)[..., None])                             # (B,R,W+1)
 
     # --- row profiles Y (B, R, K, NL, W) and the splat --------------------
-    if cfg.scan:
-        offsets = col(scene.scan_speed) * t_edges                   # (B,R,K+1)
-        yb = y_base[:, None, None, :]
-        Y = pixel_fractions_moving(
-            y_edges[:, :, None, None, :], yb + offsets[..., :-1, None],
-            yb + offsets[..., 1:, None], sigma[:, None, None, :])
-    else:
-        Y = pixel_fractions_static(
-            y_edges[:, :, None, :], y_base[:, None, :], sigma[:, None, :]
+    def row_profiles(yb: torch.Tensor) -> torch.Tensor:
+        if cfg.scan:
+            off = col(scene.scan_speed) * t_edges                   # (B,R,K+1)
+            yb = yb[:, None, None, :]
+            return pixel_fractions_moving(
+                y_edges[:, :, None, None, :], yb + off[..., :-1, None],
+                yb + off[..., 1:, None], sigma[:, None, None, :])
+        return pixel_fractions_static(
+            y_edges[:, :, None, :], yb[:, None, :], sigma[:, None, :]
         )[:, :, None].expand(B, R, K, -1, -1)
-    Yw = torch.einsum("brkl,brklw->brlw", counts, Y)                # (B,R,NL,W)
+
+    Yw = torch.einsum("brkl,brklw->brlw", counts, row_profiles(y_base))
     frames = torch.matmul(Yw.transpose(-1, -2), X[:, None])         # (B,R,W,S)
+    for X_c, y_c, rate0_c in comps:
+        # time-separable: K contracts with the shared factor, then the
+        # companion's rate scales each wavelength
+        Yw_c = (torch.einsum("brk,brklw->brlw", fac_dt, row_profiles(y_c))
+                * rate0_c[:, None, :, None])
+        frames = frames + torch.matmul(Yw_c.transpose(-1, -2), X_c[:, None])
     rows = y0.long()[..., None] + torch.arange(W, device=dev)       # (B,R,W)
     frames = frames * _gather_rows(response, rows)
+    if scene.trap_mult is not None:
+        # the trap deficit is part of the expected signal: ideal_e too
+        frames = frames * _gather_rows(scene.trap_mult, rows)
 
     ideal_e = torch.zeros((B, S, S), dtype=f32, device=dev)
     if cfg.compute_ideal:

@@ -74,6 +74,32 @@ def transit_true_anomaly(t: torch.Tensor, orbit: OrbitParams
     return true_anomaly(M, e), nu_tr
 
 
+def orbital_phase_angle(t: torch.Tensor, orbit: OrbitParams) -> torch.Tensor:
+    """True-anomaly phase angle: 0 at mid-secondary-eclipse, +-pi at
+    mid-transit, increasing with time (tracks the eccentric orbit)."""
+    nu, nu_tr = transit_true_anomaly(t, orbit)
+    raw = nu - nu_tr - math.pi
+    # wrap to (-pi, pi]: true_anomaly's arctan form is branch-cut at +-pi
+    return torch.atan2(torch.sin(raw), torch.cos(raw))
+
+
+def sky_position(t: torch.Tensor, orbit: OrbitParams
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sky-plane planet position (x, y) in stellar radii and ``in_front``:
+    the star's centre is the origin, +x the planet's motion at mid-transit,
+    +y the orbit normal's projection (the chord at y = +b).
+    ``hypot(x, y)`` equals :func:`projected_separation`'s ``z``."""
+    e = _b(orbit.ecc, t)
+    w = _b(orbit.omega_rad, t)
+    nu, _ = transit_true_anomaly(t, orbit)
+    r = _b(orbit.sma_rs, t) * (1.0 - e * e) / (1.0 + e * torch.cos(nu))
+    sin_wnu = torch.sin(w + nu)
+    x = -r * torch.cos(w + nu)
+    y = r * sin_wnu * torch.cos(_b(orbit.inc_rad, t))
+    in_front = (sin_wnu > 0.0).to(x.dtype)
+    return x, y, in_front
+
+
 def projected_separation(t: torch.Tensor, orbit: OrbitParams
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Sky-projected separation z(t) (stellar radii) and ``in_front``

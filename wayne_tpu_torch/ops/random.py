@@ -35,6 +35,7 @@ TAG_BIAS_DRIFT = 18    # per-read per-amplifier bias drift
 TAG_SSV_WALK = 19      # random-walk scan-speed variation steps
 TAG_SEED = 20          # exposure seed words from (visit seed, index)
 TAG_MC_SEED = 21       # seed words from (root seed, realisation, exposure)
+TAG_RTS = 22           # unstable (RTS) pixel state, one per exposure and pixel
 
 T_EXACT = 3.0          # below: exact inverse transform (12 terms)
 _T_GAUSS = 100.0       # above: plain Gaussian; between: Cornish-Fisher

@@ -18,7 +18,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from wayne_tpu_torch.ops.kepler import OrbitParams, projected_separation
+from wayne_tpu_torch.ops.kepler import (
+    OrbitParams, orbital_phase_angle, projected_separation,
+)
 
 _N_RP_CTRL = 16
 
@@ -98,10 +100,36 @@ def transit_depth_curve(z: torch.Tensor, rp_over_rs: torch.Tensor,
     return 1.0 - occ / claret_total_flux(ld)
 
 
+def uniform_disk_hidden_frac(z: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Fraction of a uniform disk of radius ``p`` hidden behind the unit
+    (stellar) disk at projected separation ``z``: the closed-form lens
+    area / (pi p^2); 0 for z >= 1 + p, 1 for z <= 1 - p."""
+    z = torch.clamp_min(z.float(), 1e-7)
+    p = p.float()
+    c1 = torch.clamp((z * z + p * p - 1.0) / (2.0 * z * p), -1.0, 1.0)
+    c2 = torch.clamp((z * z + 1.0 - p * p) / (2.0 * z), -1.0, 1.0)
+    s = torch.clamp_min((1.0 + p - z) * (z + p - 1.0) * (z - p + 1.0)
+                        * (z + p + 1.0), 0.0)
+    lens = p * p * torch.arccos(c1) + torch.arccos(c2) - 0.5 * torch.sqrt(s)
+    frac = lens / (math.pi * torch.clamp_min(p * p, 1e-12))
+    frac = torch.where(z >= 1.0 + p, torch.zeros_like(frac), frac)
+    frac = torch.where(z <= 1.0 - p, torch.ones_like(frac), frac)
+    return torch.clamp(frac, 0.0, 1.0)
+
+
+def eclipse_visibility(z: torch.Tensor, in_front: torch.Tensor,
+                       rp_over_rs: torch.Tensor) -> torch.Tensor:
+    """Visible fraction of the planet's disk: 1 except behind the star
+    (secondary eclipse)."""
+    return 1.0 - uniform_disk_hidden_frac(z, rp_over_rs) * (1.0 - in_front)
+
+
 def transit_light_curve(times: torch.Tensor, orbit: OrbitParams,
                         rp_over_rs: torch.Tensor, ld: torch.Tensor,
                         n_quad: int = 64, interp_channels: bool = True,
-                        fp_over_fs: torch.Tensor | None = None
+                        fp_over_fs: torch.Tensor | None = None,
+                        phase_amp: torch.Tensor | float = 0.0,
+                        phase_offset_rad: torch.Tensor | float = 0.0
                         ) -> torch.Tensor:
     """Light curve on a (time, wavelength) grid.
 
@@ -114,16 +142,16 @@ def transit_light_curve(times: torch.Tensor, orbit: OrbitParams,
         through rp, so the occultation integral runs at 16 rp control
         points and is interpolated per channel with hat weights (one fp32
         contraction, TF32 off — see the package docstring).
-      fp_over_fs: planet dayside light (eclipse / phase curve) — not
-        ported yet; must be None.
+      fp_over_fs: optional (..., NL) planet dayside contrast Fp/Fs; when
+        given the flux includes the planet's light, 1 + fp out of eclipse,
+        hidden behind the star at secondary eclipse (uniform disk).
+      phase_amp, phase_offset_rad: thermal phase curve, scalars or (...):
+        the contrast is fp * [1 - A (1 - cos(phi + phi0)) / 2], phi = 0 at
+        mid-secondary-eclipse.
 
     Returns:
       (..., NT, NL) relative flux.
     """
-    if fp_over_fs is not None:
-        raise NotImplementedError(
-            "eclipse / phase-curve light curves are not ported yet "
-            "(ROADMAP Queue A7)")
     z, in_front = projected_separation(times, orbit)
     nl = rp_over_rs.shape[-1]
     per_channel_ld = ld.dim() == rp_over_rs.dim() + 1
@@ -151,4 +179,17 @@ def transit_light_curve(times: torch.Tensor, orbit: OrbitParams,
     else:
         flux = transit_depth_curve(z[..., :, None], rp_over_rs[..., None, :],
                                    ld[..., None, None, :], n_quad)
-    return 1.0 - (1.0 - flux) * in_front[..., :, None]
+    flux = 1.0 - (1.0 - flux) * in_front[..., :, None]
+    if fp_over_fs is not None:
+        vis = eclipse_visibility(z[..., :, None], in_front[..., :, None],
+                                 rp_over_rs[..., None, :])
+        phi = orbital_phase_angle(times, orbit)                   # (..., NT)
+        amp = torch.as_tensor(phase_amp, dtype=torch.float32,
+                              device=times.device)
+        off = torch.as_tensor(phase_offset_rad, dtype=torch.float32,
+                              device=times.device)
+        amp = amp.reshape(amp.shape + (1,) * (phi.dim() - amp.dim()))
+        off = off.reshape(off.shape + (1,) * (phi.dim() - off.dim()))
+        mod = 1.0 - amp * 0.5 * (1.0 - torch.cos(phi + off))
+        flux = flux + fp_over_fs[..., None, :] * mod[..., :, None] * vis
+    return flux

@@ -8,10 +8,12 @@ call, so the readout kernel launches once per chunk.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from wayne_tpu_torch.calibration import Tables
-from wayne_tpu_torch.config import ExposureStatic
+from wayne_tpu_torch.config import ExposureStatic, NoiseFlags
 from wayne_tpu_torch.ops.exposure import ExposureResult, simulate_exposure
 from wayne_tpu_torch.pytree import leaves, tree_map
 from wayne_tpu_torch.scene import Scene
@@ -45,3 +47,27 @@ def simulate_visit(scenes: Scene, tables: Tables, cfg: ExposureStatic,
         return outs[0]
     it = iter(zip(*(leaves(o) for o in outs)))
     return tree_map(lambda _: torch.cat(next(it)), outs[0])
+
+
+def visit_fluence_stack(scenes: Scene, tables: Tables, cfg: ExposureStatic,
+                        chunk: int = 8) -> torch.Tensor:
+    """Noise-free end-of-exposure fluence maps (N, S, S): the ideal source
+    accumulation plus the expectation of the background the run's noise
+    flags enable (sky, dark). The stimulus shared by the persistence and
+    RECTE models, from one pass of the visit through the same
+    :func:`simulate_visit` with every noise flag off (on the card: the
+    whole-exposure readout with its noise off)."""
+    ideal_cfg = dataclasses.replace(cfg, noise=NoiseFlags.none(),
+                                    compute_ideal=True)
+    padded, n = pad_scenes(scenes, chunk)
+    ideal = simulate_visit(padded, tables, ideal_cfg, chunk).ideal_e[:n]
+    exptime = float(tables.read_times[-1])
+    bg = None
+    if cfg.noise.sky:
+        bg = scenes.sky_level[:, None, None] * tables.sky_frame[None]
+    if cfg.noise.dark:
+        d = tables.dark_map[None].expand(ideal.shape)
+        bg = d if bg is None else bg + d
+    if bg is not None:
+        ideal = ideal + bg * exptime * tables.active_mask[None]
+    return ideal

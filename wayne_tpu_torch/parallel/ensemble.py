@@ -13,13 +13,15 @@ vmaps a realisation's exposures), so what realisation m computes does not
 depend on how many realisations are asked for at once.
 
 Multi-GPU sharding (the JAX package's ``mesh``) is ROADMAP Queue A6's
-remainder. The charge-memory leaves that the JAX package keeps untiled
-(``MC_INVARIANT_FIELDS``: persistence, RECTE) are not in the port's Scene.
+remainder: ``mesh`` other than None raises. The charge-memory leaves
+(``MC_INVARIANT_FIELDS``: persistence, RECTE) stay one (n_exp, S, S) buffer
+that every realisation views.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -43,7 +45,9 @@ def mc_scenes(visit_scenes: Scene, n_mc: int, seed: int = 0,
     per (GLOBAL realisation index, exposure) from one root seed
     (:func:`ops.random.mc_seed_words`). Local realisation m is keyed as
     ``mc_offset + m``, so a chunked run draws the same noise for
-    realisation i however the chunks are cut.
+    realisation i however the chunks are cut. Every leaf is an ``expand``
+    of the visit's (a view, no copy): the MC-invariant charge-memory maps
+    stay the one (n_exp, S, S) buffer.
     """
     n_exp = visit_scenes.n
     dev = visit_scenes.x_ref.device
@@ -94,10 +98,15 @@ def _reduce(res: ExposureResult, tables: Tables, cfg: ExposureStatic,
 
 
 def simulate_ensemble_spectra(scenes: Scene, tables: Tables,
-                              cfg: ExposureStatic, ramp: bool = False,
-                              dq_aware: bool = True, nlincorr: bool = True,
+                              cfg: ExposureStatic, mesh=None, *,
+                              ramp: bool = False, dq_aware: bool = True,
+                              nlincorr: bool = True,
                               chunk: int = 8) -> torch.Tensor:
     """Extracted spectra of an (mc, exp)-batched Scene -> (mc, exp, S).
+
+    ``mesh`` stands where the JAX package's does, so a call written for
+    it cannot land its mesh in another argument; any mesh but None raises
+    (multi-GPU ensembles are ROADMAP Queue A6's remainder).
 
     ``ramp=True`` extracts with the up-the-ramp slope instead of CDS.
     ``dq_aware`` (default) repairs the simulated cosmic-ray hits at
@@ -107,16 +116,34 @@ def simulate_ensemble_spectra(scenes: Scene, tables: Tables,
     then in linearized ELECTRONS instead of DN. ``chunk`` exposures of one
     realisation go through each readout launch; the result does not depend
     on it.
+
+    Unstable (RTS) pixels do not cancel in normalised light curves (their
+    state changes per exposure), and these column sums carry them
+    unrepaired: a warning says so when ``tables.rts_amp`` is active.
     """
+    if mesh is not None:
+        raise NotImplementedError(
+            "simulate_ensemble_spectra(mesh=...): multi-GPU ensembles are "
+            "not ported to wayne_tpu_torch yet (ROADMAP Queue A6's "
+            "remainder); pass mesh=None")
+    if tables.rts_amp is not None and bool((tables.rts_amp > 0).any()):
+        warnings.warn(
+            "simulate_ensemble_spectra: Tables.rts_amp is active — RTS "
+            "(unstable-pixel) corruption is time-varying and does NOT "
+            "cancel in normalised light curves; these full-frame column "
+            "sums carry it unrepaired (mask DQ-32 columns for unbiased "
+            "depths)", stacklevel=2)
     nlincorr = nlincorr and cfg.noise.non_linearity
     read_times = tables.read_times if ramp else None
     n_mc, n_exp = scenes.x_ref.shape[:2]
     spectra = []
     for m in range(n_mc):
-        visit, _ = pad_scenes(tree_map(lambda x: x[m], scenes), chunk)
-        for c0 in range(0, visit.n, chunk):
-            res = simulate_exposure(
-                tree_map(lambda x: x[c0:c0 + chunk], visit), tables, cfg)
+        for c0 in range(0, n_exp, chunk):
+            # views of the realisation's exposures; only a short last
+            # batch is padded (a copy of that batch alone)
+            batch, _ = pad_scenes(
+                tree_map(lambda x: x[m, c0:c0 + chunk], scenes), chunk)
+            res = simulate_exposure(batch, tables, cfg)
             spectra.append(_reduce(res, tables, cfg, read_times, dq_aware,
                                    nlincorr))
     return torch.cat(spectra).view(n_mc, -1, cfg.subarray)[:, :n_exp]

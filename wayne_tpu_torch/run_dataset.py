@@ -8,12 +8,15 @@ Usage:
 Each realisation reuses the planned visit (pointing drift, transit timing)
 with independent noise; ``--rp-sigma`` also sweeps the continuum Rp/Rs per
 realisation (Gaussian around the configured value) and stores it as a
-label. Output: ``chunk_XXXX.npz`` files of extracted spectra and labels and
-a ``manifest.json``; a re-run resumes at the first missing chunk.
+label; ``--fp-sigma`` sweeps the eclipse depth Fp/Fs the same way (label
+``fp``, the band mean). Persistence and RECTE, when the YAML enables them,
+are computed once from the visit's noise-free stimulus and shared by every
+realisation. Output: ``chunk_XXXX.npz`` files of extracted spectra and
+labels and a ``manifest.json``; a re-run resumes at the first missing
+chunk.
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
-``--recover`` (ROADMAP Queue A8) and ``--fp-sigma`` (eclipse light, Queue
-A7) raise NotImplementedError.
+``--recover`` (ROADMAP Queue A8) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -38,8 +41,7 @@ def main(argv: list[str] | None = None) -> int:
                         help="per-realisation Gaussian sweep of Rp/Rs")
     parser.add_argument("--fp-sigma", type=float, default=0.0,
                         help="per-realisation Gaussian sweep of the eclipse "
-                             "depth Fp/Fs (requires planet eclipse_depth; "
-                             "not ported yet)")
+                             "depth Fp/Fs (requires planet eclipse_depth)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--raw-cr", action="store_true",
                         help="keep simulated cosmic rays IN the spectra "
@@ -88,9 +90,22 @@ def main(argv: list[str] | None = None) -> int:
         if not obs.static.eclipse:
             parser.error("--fp-sigma requires planet eclipse_depth or "
                          "eclipse_file in the parameter file")
-        raise NotImplementedError(
-            "run_dataset --fp-sigma: eclipse / phase-curve light is not "
-            "ported to wayne_tpu_torch yet (ROADMAP Queue A7)")
+        rng = np.random.RandomState(args.seed + 1)
+        # an additive shift of the configured contrast spectrum, clipped
+        # so every channel stays physical
+        fp_grid = obs.planet.fp_on_grid(
+            obs.tables.wl_centers.cpu().numpy())                 # (NL,)
+        delta = (args.fp_sigma
+                 * rng.standard_normal(args.n_mc)).astype(np.float32)
+        fp_mc = np.clip(fp_grid[None, :] + delta[:, None], 0.0, None
+                        ).astype(np.float32)                     # (n_mc, NL)
+        overrides["fp_over_fs"] = fp_mc
+        labels["fp"] = fp_mc.mean(axis=1)
+
+    # one persistence and trap solution, from the noise-free stimulus,
+    # shared by every realisation
+    obs._ensure_persistence()
+    obs._ensure_recte()
 
     manifest = generate_dataset(
         obs.scenes, obs.tables, obs.static, args.outdir,

@@ -5,10 +5,8 @@ A Scene is a dataclass of tensors. Batched over exposures, every leaf
 carries a leading exposure dimension (B,): that batch dimension takes the
 place of the JAX package's ``vmap``. The JAX ``key`` becomes ``seed``, two
 int32 words per exposure that key the port's Philox streams
-(:mod:`wayne_tpu_torch.ops.random`).
-
-Not ported yet (ROADMAP): companions, starspots, persistence and RECTE
-maps — the JAX Scene's optional leaves for those have no field here.
+(:mod:`wayne_tpu_torch.ops.random`). Optional leaves are None when their
+physics is off, and then ``simulate_exposure`` runs without it.
 """
 
 from __future__ import annotations
@@ -19,7 +17,20 @@ from dataclasses import dataclass
 import torch
 
 from wayne_tpu_torch.ops.kepler import OrbitParams
+from wayne_tpu_torch.ops.spots import SpotParams
 from wayne_tpu_torch.trends import TrendParams
+
+
+@dataclass
+class CompanionParams:
+    """Contaminating field sources: point sources at direct-image offsets
+    from the target, each dispersing from its own field position, riding
+    the same scan, SSV and visit trend, with no transit or spot signal.
+    Batched: a leading (B,) on each leaf."""
+
+    dx_px: torch.Tensor    # (n_comp,) direct-image column offset (px)
+    dy_px: torch.Tensor    # (n_comp,) direct-image row offset (px)
+    flux: torch.Tensor     # (n_comp, NL) F_lambda (units of stellar_flux)
 
 
 @dataclass
@@ -34,8 +45,8 @@ class Scene:
     scan_speed: torch.Tensor      # signed scan rate (px/s); 0 for staring
     stellar_flux: torch.Tensor    # (NL,) F_lambda, erg/s/cm^2/um on wl grid
     rp_over_rs: torch.Tensor      # (NL,) transmission spectrum
-    fp_over_fs: torch.Tensor      # (NL,) dayside contrast (eclipse; unused
-    #                               until the eclipse path is ported)
+    fp_over_fs: torch.Tensor      # (NL,) dayside contrast Fp/Fs, read only
+    #                               when ExposureStatic.eclipse is set
     phase_amp: torch.Tensor       # thermal phase-curve amplitude
     phase_offset: torch.Tensor    # hot-spot offset (rad)
     ld: torch.Tensor              # (4,) Claret coefficients, or (NL, 4)
@@ -47,11 +58,24 @@ class Scene:
     #                               (focus breathing); None = 1 exactly
     sky_he_level: torch.Tensor | None = None  # He 1.083 um airglow level
     #                               scaling Tables.sky_he_frame; None = off
+    persist_rate: torch.Tensor | None = None  # (S, S) persistence rate
+    #                               (e-/s) from earlier exposures
+    trap_mult: torch.Tensor | None = None     # (S, S) RECTE escape fraction
+    #                               in (0, 1]; None = no trapping
+    spots: SpotParams | None = None           # starspots; None = immaculate
+    companions: CompanionParams | None = None  # field sources; None = none
 
     @property
     def n(self) -> int:
         """Exposures in a batched Scene."""
         return self.x_ref.shape[0]
+
+
+# Scene fields identical for every Monte-Carlo realisation of a visit (the
+# charge-memory maps come from the noise-free stimulus): ensembles keep
+# them at their per-visit (n_exp, S, S) shape and never copy them per
+# realisation.
+MC_INVARIANT_FIELDS = frozenset({"persist_rate", "trap_mult"})
 
 
 def example_scene(n_lambda: int, *, seed: int = 0, scan_speed: float = 1.0,
