@@ -220,14 +220,38 @@ ptxas info    : Used 40 registers, 544 bytes cmem[0]
 """
 
 
-def test_registers_and_spills_of_a_ptxas_log():
+# the two instantiations of a kernel (template <bool EXACT>), each followed
+# by the properties of an out-of-line device function it calls
+PTXAS_LOG_TEMPLATES = """
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__f4_12_read_step_cu_f5123read_step_banded_kernelILb0EEEvNS_8StepArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__f4_12_read_step_cu_f5123read_step_banded_kernelILb0EEEvNS_8StepArgsE
+    96 bytes stack frame, 64 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 96 bytes cumulative stack size, 8224 bytes smem
+ptxas info    : Function properties for _ZN43_INTERNAL_f4_12_read_step_cu_f513add_band_callILb0EEEfffbjjjj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__f4_12_read_step_cu_f5123read_step_banded_kernelILb1EEEvNS_8StepArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__f4_12_read_step_cu_f5123read_step_banded_kernelILb1EEEvNS_8StepArgsE
+    184 bytes stack frame, 288 bytes spill stores, 156 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 184 bytes cumulative stack size, 8224 bytes smem
+ptxas info    : Function properties for _ZN43_INTERNAL_f4_12_read_step_cu_f5120exact_poisson_sampleEfjjjjj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+"""
+
+
+@pytest.mark.parametrize("log,want", [
+    (PTXAS_LOG, {"read_step_banded_kernel": {
+        "registers": 64, "spill_stores": 0, "spill_loads": 0},
+        "read_step_kernel": {"registers": 40, "spill_stores": 28,
+                             "spill_loads": 24}}),
+    (PTXAS_LOG_TEMPLATES, {"read_step_banded_kernel": {
+        "registers": 64, "spill_stores": 64, "spill_loads": 40},
+        "read_step_banded_kernel (exact_poisson)": {
+            "registers": 64, "spill_stores": 288, "spill_loads": 156}}),
+], ids=["kernels", "instantiations and device functions"])
+def test_registers_and_spills_of_a_ptxas_log(log, want):
     import torch_perf_breakdown as tpb
 
-    assert tpb.parse_ptxas(PTXAS_LOG) == {
-        "read_step_banded_kernel": {"registers": 64, "spill_stores": 0,
-                                    "spill_loads": 0},
-        "read_step_kernel": {"registers": 40, "spill_stores": 28,
-                             "spill_loads": 24}}
+    assert tpb.parse_ptxas(log) == want
 
 
 def test_opcode_counts_of_a_sass_listing():

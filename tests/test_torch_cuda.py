@@ -194,7 +194,8 @@ def _banded_reference(**kw):
     ``poisson``, then the plain step."""
     if kw["poisson"]:
         kw = dict(kw, band=sample_band(kw["seed"], kw["read"], kw["y0"],
-                                       kw["band"]))
+                                       kw["band"],
+                                       kw.get("exact_poisson", False)))
     return read_step_banded_plain(**kw)
 
 
@@ -567,3 +568,53 @@ def test_program_on_the_card(card, tmp_path):
     summary = (tmp_path / "out" / "program_summary.json").read_text()
     assert summary.count('"carry"') == 2
     assert (tmp_path / "out" / "visit_00" / "carry_fluence.npy").exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ipc", [False, True])
+@pytest.mark.parametrize("edge", ["S=136", "crowded tile", "W=S"])
+def test_exact_mode_matches_plain_bit_for_bit(card, edge, ipc):
+    """``exact_poisson``: B1, B2 and B3 (the kernels' second
+    instantiation, detector.cuh's exact sampler: Knuth on the small
+    background, PTRS on the band) = their plain versions bit for bit, a
+    second run identical; the default mode still = plain and differs."""
+    args = _edge_inputs(card, *EDGES[edge])
+    on = dict(poisson=True, read_noise=True, ipc=ipc)
+    got, cum = exposure_readout(*args, **on, exact_poisson=True)
+    want, cum_w = exposure_readout_plain(*args, **on, exact_poisson=True)
+    assert torch.equal(got, want) and torch.equal(cum, cum_w)
+    assert exposure_readout(*args, **on, exact_poisson=True)[0].equal(got)
+    default, _ = exposure_readout(*args, **on)
+    assert torch.equal(default, exposure_readout_plain(*args, **on)[0])
+    assert not torch.equal(default, got)
+    t = _step_edge_inputs(card, *STEP_EDGES[edge])
+    kw = dict(on, exact_poisson=True)
+    cum2, dn = read_step_banded(read=5, **_banded_args(t), **kw)
+    cum2_w, dn_w = _banded_reference(read=5, **_banded_args(t), **kw)
+    assert torch.equal(dn, dn_w) and torch.equal(cum2, cum2_w)
+    if not ipc:
+        kw = dict(poisson=True, read_noise=True, exact_poisson=True)
+        cum3, dn3 = read_step(read=5, **_full_frame_args(t), **kw)
+        cum3_w, dn3_w = read_step_plain(read=5, **_full_frame_args(t), **kw)
+        assert torch.equal(dn3, dn3_w) and torch.equal(cum3, cum3_w)
+
+
+@pytest.mark.cuda
+def test_write_ima_raises_when_the_native_library_cannot_load(
+        card, tmp_path, monkeypatch):
+    """No quiet Python write: without g++ and a built library the native
+    writer raises naming g++ and leaves no file."""
+    from wayne_tpu_torch.io import native
+    from wayne_tpu_torch.io.ima import default_primary_header, write_ima
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    reads = np.ones((3, 16, 16), np.float32)
+    hdr = default_primary_header(
+        targname="T", grism="G141", nsamp=2, samp_seq="RAPID", subarray=64,
+        expstart_mjd=56000.0, exptime_s=1.0, scan=False, scan_rate_pix_s=0.0)
+    path = tmp_path / "x_ima.fits"
+    with pytest.raises(native.NativeWriterError, match="g\\+\\+"):
+        write_ima(str(path), reads, np.arange(3.0), hdr)
+    assert not path.exists()

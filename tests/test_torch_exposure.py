@@ -234,14 +234,21 @@ def test_per_read_route_draws_what_the_fused_route_draws(band, ipc):
 
 
 def test_unported_paths_raise():
-    """exact_poisson needs a sampler mode in the kernels: it raises,
-    naming its ROADMAP item; extra beams and the eclipse light run."""
+    """The paths that once raised run: exact_poisson (the exact sampler in
+    the readout and the cosmic-ray count), extra beams and the eclipse
+    light; with exact_poisson and the noise off but Poisson, every read
+    is an integer charge over the scalar gain."""
     S, NL = 64, 16
     tables = synthetic_tables("G141", subarray=S, n_lambda=NL, nsamp=2)
     scene = example_scene(NL)
-    cfg = ExposureStatic(subarray=S, n_lambda=NL, nsamp=2, exact_poisson=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 5b"):
-        _run_port(cfg, tables, scene)
-    for kw in (dict(extra_beams=True), dict(eclipse=True)):
+    for kw in (dict(exact_poisson=True), dict(extra_beams=True),
+               dict(eclipse=True)):
         cfg = ExposureStatic(subarray=S, n_lambda=NL, nsamp=2, **kw)
         assert _run_port(cfg, tables, scene).reads_dn.shape == (1, 3, S, S)
+    poisson_only = dataclasses.replace(
+        NoiseFlags.none(), poisson=True, sky=True, dark=True)
+    cfg = ExposureStatic(subarray=S, n_lambda=NL, nsamp=2,
+                         exact_poisson=True, noise=poisson_only)
+    e = _run_port(cfg, tables, scene).reads_dn * float(tables.gain)
+    assert torch.allclose(e, torch.round(e), rtol=0, atol=2e-3)
+    assert float(e[0, -1].sum()) > float(e[0, 1].sum()) > 0.0

@@ -91,6 +91,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         Program(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_program(["-p", str(yml), "-o", str(tmp_path / "prog")])
+    from wayne_tpu_torch.compat import ExposureGenerator, run
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ExposureGenerator(subarray=64, n_lambda=16, nsamp=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run(str(yml), outdir=str(tmp_path / "compat"))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -85,15 +85,19 @@ def test_build_scenes_matches_jax():
             np.testing.assert_array_equal(st[k], v, err_msg=k)
 
 
-def test_unported_visit_features_raise():
-    """The visit-level physics runs; real calibration products (the YAML
-    ``calibration:`` block) still raise, naming their ROADMAP item."""
+def test_unported_visit_features_raise(tmp_path):
+    """The visit-level physics runs, and so does a YAML ``calibration:``
+    block (once raising, naming ROADMAP item 7e): its sensitivity table
+    replaces the synthetic curve."""
     Observation(config_from_dict(dict(TINY, persistence=True, recte=True)),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        Observation(config_from_dict(dict(
-            TINY, calibration={"sensitivity_file": "sens.txt"})),
-            device="cpu")
+    sens = tmp_path / "sens.txt"
+    np.savetxt(sens, np.stack([np.linspace(10000, 18000, 16),
+                               np.full(16, 1.1e16)], axis=1))
+    obs = Observation(config_from_dict(dict(
+        TINY, calibration={"sensitivity_file": str(sens)})), device="cpu")
+    np.testing.assert_allclose(obs.tables.sensitivity.numpy(), 1.1e16,
+                               rtol=1e-6)
 
 
 def test_run_visit_cli_on_cpu(tmp_path, capsys):

@@ -136,11 +136,21 @@ def test_carry_reuse_rejects_stale_config(tmp_path):
 
 
 def test_run_program_debug_raises(tmp_path):
+    """``run_program --debug`` (once raising, naming item 5b) runs each
+    visit's guards and writes its visit_summary.json."""
     yml = tmp_path / "prog.yml"
     yml.write_text(yaml.safe_dump(_params()))
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        run_program(["-p", str(yml), "-o", str(tmp_path / "o"), "--cpu",
-                     "--debug"])
+    out = tmp_path / "o"
+    assert run_program(["-p", str(yml), "-o", str(out), "--cpu",
+                        "--debug"]) == 0
+    for v in sorted(out.glob("visit_*")):
+        summary = json.loads((v / "visit_summary.json").read_text())
+        n = summary["n_exposures"]
+        assert n == len(list(v.glob("*_ima.fits"))) > 0
+        assert [e["chunk"] for e in summary["exposures"]] == list(
+            range(0, n, 8))
+        assert all(np.isfinite(e["reads_max_dn"])
+                   for e in summary["exposures"])
 
 
 TINY_YAML = """\

@@ -119,11 +119,17 @@ _KERNELS = ("exposure_readout_kernel", "read_step_banded_kernel",
 
 def parse_ptxas(log: str) -> dict:
     """{kernel: {"registers", "spill_stores", "spill_loads"}} for the
-    readout kernels named in a ``ptxas -v`` log."""
+    readout kernels named in a ``ptxas -v`` log; a kernel's exact_poisson
+    instantiation is its own entry."""
     out, fn = {}, None
     for line in log.splitlines():
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
+        # a device function's properties (an out-of-line call) follow its
+        # kernel's: they belong to no kernel
+        if m := (re.search(r"Compiling entry function '(\S+)'", line)
+                 or re.search(r"Function properties for (\S+)", line)):
             fn = next((k for k in _KERNELS if k in m.group(1)), None)
+            if fn and "ILb1E" in m.group(1):   # template <bool EXACT = true>
+                fn += " (exact_poisson)"
         elif fn and (m := re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             out.setdefault(fn, {}).update(spill_stores=int(m.group(1)),

@@ -4,7 +4,8 @@ A copy of the JAX package's ``calibration`` module: the synthetic tables are
 built by the same fixed-seed NumPy code (``RandomState``), so every leaf
 equals the JAX package's to float32 rounding, and then handed to torch as
 float32 tensors on the requested device. The loaders of real STScI products
-are not ported yet.
+(aXe conf, sensitivity table, flat cube, master and helium sky,
+non-linearity cube, QE or DQ-bit plane) follow the JAX package's.
 
 Unit conventions: see :mod:`wayne_tpu_torch.config`.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import warnings
 from dataclasses import dataclass
 from typing import Any
 
@@ -170,6 +172,11 @@ def sample_sequence_times(samp_seq: str, nsamp: int, subarray: int) -> np.ndarra
     for dt_ff in intervals:
         times.append(times[-1] + (dt_ff - t_ff) + t_frame)
     return np.asarray(times, dtype=np.float64)
+
+
+def exptime(samp_seq: str, nsamp: int, subarray: int) -> float:
+    """Total exposure time (reference: wayne/detector.py :: exptime)."""
+    return float(sample_sequence_times(samp_seq, nsamp, subarray)[-1])
 
 
 def load_sequence_table(path: str) -> None:
@@ -529,3 +536,197 @@ def nonlin_fw_deficit(tables: Tables) -> float:
     """Mean fractional charge deficit at full well (scalar summary), for
     the host-side DQ saturation ceiling."""
     return float(tables.nonlin_coeffs.double().sum(0).mean())
+
+
+# ---------------------------------------------------------------------------
+# Loader seams for real STScI products (the JAX package's recipes, read
+# through this package's own FITS layer; tensors land on the Tables' device)
+# ---------------------------------------------------------------------------
+
+
+def load_axe_conf(path: str) -> dict[str, np.ndarray]:
+    """Parse an aXe grism ``.conf`` file into field-poly coefficient vectors.
+
+    Returns DYDX_A_0/1 and DLDP_A_0/1 as 6-vectors (wavelengths converted
+    Angstrom -> micron). Only the +1st order (BEAM A) keys are read.
+    """
+    keys = ("DYDX_A_0", "DYDX_A_1", "DLDP_A_0", "DLDP_A_1")
+    out: dict[str, np.ndarray] = {}
+    with open(path) as fh:
+        for line in fh:
+            line = line.split(";")[0].strip()
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split()
+            if parts[0] in keys:
+                vals = np.zeros(_POLY2D_NTERMS)
+                given = np.asarray([float(v) for v in parts[1:]])
+                vals[: len(given)] = given[:_POLY2D_NTERMS]
+                if parts[0].startswith("DLDP"):
+                    vals *= 1e-4  # Angstrom -> micron
+                out[parts[0]] = vals
+    missing = set(keys) - set(out)
+    if missing:
+        raise ValueError(f"aXe conf {path!r} missing keys: {sorted(missing)}")
+    return out
+
+
+def load_sensitivity_ascii(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """Load a two-column (wavelength[um or A], sensitivity) ASCII table."""
+    data = np.loadtxt(path)
+    wl, sens = data[:, 0], data[:, 1]
+    if wl.max() > 100.0:  # heuristically Angstrom
+        wl = wl * 1e-4
+    return wl, sens
+
+
+def _subarray_cutout(plane: np.ndarray, subarray: int) -> np.ndarray:
+    """Centered subarray cutout of a full-frame calibration plane."""
+    if plane.shape[0] == subarray:
+        return plane
+    if plane.shape[0] < subarray:
+        raise ValueError(
+            f"calibration plane {plane.shape} smaller than subarray {subarray}")
+    c0 = (plane.shape[0] - subarray) // 2
+    return plane[c0: c0 + subarray, c0: c0 + subarray]
+
+
+def _fits_planes(path: str) -> list[np.ndarray]:
+    """The image planes of a FITS file: the slices of a single 3-D array,
+    else every HDU's array in order."""
+    from wayne_tpu_torch.io.fits import read_fits
+
+    arrays = [d for _, d in read_fits(path) if d is not None]
+    if len(arrays) == 1 and arrays[0].ndim == 3:
+        return list(arrays[0])
+    return arrays
+
+
+def _first_plane(path: str) -> np.ndarray:
+    """The first 2-D image of a FITS file."""
+    from wayne_tpu_torch.io.fits import read_fits
+
+    return next(d for _, d in read_fits(path)
+                if d is not None and d.ndim == 2)
+
+
+def load_flat_cube_fits(path: str, subarray: int) -> np.ndarray:
+    """Load a wavelength-dependent flat-field cube FITS (4 coefficient
+    planes, as WFC3.IR.G141.flat.2.fits): one 3-D (4, N, N) primary array
+    or 4 image HDUs; missing planes are zero."""
+    planes = _fits_planes(path)
+    planes = (planes + [np.zeros_like(planes[0])] * 4)[:4]
+    return np.stack([_subarray_cutout(np.asarray(p, np.float64), subarray)
+                     for p in planes])
+
+
+def load_master_sky_fits(path: str, subarray: int) -> np.ndarray:
+    """Load a master-sky frame FITS, normalised to mean 1."""
+    sky = _subarray_cutout(np.asarray(_first_plane(path), np.float64),
+                           subarray)
+    return sky / sky.mean()
+
+
+def load_nonlin_cube_fits(path: str, subarray: int) -> np.ndarray:
+    """Load per-pixel non-linearity coefficient planes from a FITS cube: a
+    (3, N, N) primary array or 3 image HDUs, the (c1, c2, c3) planes of the
+    forward cubic deficit in normalised charge."""
+    planes = _fits_planes(path)
+    if len(planes) != 3:
+        raise ValueError(
+            f"non-linearity cube {path!r} must carry 3 coefficient planes "
+            f"(c1, c2, c3); found {len(planes)}")
+    return np.stack([_subarray_cutout(np.asarray(p, np.float64), subarray)
+                     for p in planes])
+
+
+def _on(tables: Tables, a: np.ndarray) -> torch.Tensor:
+    """A float32 tensor of ``a`` on the Tables' device."""
+    return torch.as_tensor(np.asarray(a, np.float64), dtype=torch.float32,
+                           device=tables.device)
+
+
+def with_loaded_nonlin(tables: Tables, path: str) -> Tables:
+    """Override the synthetic non-linearity planes with a real cube."""
+    subarray = tables.flat_coeffs.shape[-1]
+    return dataclasses.replace(
+        tables, nonlin_coeffs=_on(tables, load_nonlin_cube_fits(path,
+                                                                subarray)))
+
+
+def with_loaded_qe(tables: Tables, path: str) -> Tables:
+    """Override the synthetic relative-QE defect plane with a real one.
+
+    Accepts a float plane (relative QE: 1 nominal, 0 dead, fractional in
+    blobs) or an integer DQ-bit plane like the STScI bad-pixel tables (bit
+    4 = dead -> QE 0; bit 512 = blob -> QE 0.88). Float planes must be
+    RELATIVE QE (the DQ planes flag blob at QE < 0.98, dead at < 0.05): a
+    median off 1 by more than 5% is renormalised by the median with a
+    warning, and a plane that still flags more than 5% of the pixels
+    warns. Full-frame planes are cut to the subarray.
+    """
+    plane = np.asarray(_first_plane(path))
+    if np.issubdtype(plane.dtype, np.integer):
+        bits = plane.astype(np.int64)
+        qe = np.ones(plane.shape, np.float64)
+        qe[(bits & 512) != 0] = 0.88
+        qe[(bits & 4) != 0] = 0.0
+    else:
+        qe = np.clip(np.asarray(plane, np.float64), 0.0, None)
+        med = float(np.median(qe))
+        if med <= 0.0:
+            raise ValueError(
+                f"QE plane {path!r} has non-positive median ({med:g}) — "
+                "not a usable relative-QE or DQ-bit plane")
+        if not 0.95 <= med <= 1.05:
+            warnings.warn(
+                f"QE plane {path!r} has median {med:.3f}; treating it as "
+                "an absolute plane and renormalising by the median so "
+                "nominal pixels sit at ~1 (static_dq_plane flags "
+                "QE < 0.98 as blob)", stacklevel=2)
+            qe = qe / med
+        frac_flagged = float((qe < 0.98).mean())
+        if frac_flagged > 0.05:
+            warnings.warn(
+                f"QE plane {path!r}: {frac_flagged:.1%} of pixels sit "
+                "below the 0.98 blob-flag threshold — the DQ-aware "
+                "reduction will mask all of them; check the plane is "
+                "relative QE (1 = nominal)", stacklevel=2)
+    qe = _subarray_cutout(qe, tables.flat_coeffs.shape[-1])
+    return dataclasses.replace(tables, qe_map=_on(tables, qe))
+
+
+def with_loaded_grism(tables: Tables, conf_path: str | None = None,
+                      sens_path: str | None = None,
+                      flat_path: str | None = None,
+                      sky_path: str | None = None,
+                      sky_he_path: str | None = None) -> Tables:
+    """Override synthetic grism calibration with real STScI products: the
+    aXe trace and dispersion, the sensitivity (interpolated onto the
+    wavelength grid in float64, zero outside the table), the flat cube and
+    the master and helium sky frames."""
+    updates: dict[str, torch.Tensor] = {}
+    subarray = tables.flat_coeffs.shape[-1]
+    if conf_path is not None:
+        conf = load_axe_conf(conf_path)
+        updates.update(dydx0=_on(tables, conf["DYDX_A_0"]),
+                       dydx1=_on(tables, conf["DYDX_A_1"]),
+                       dldp0=_on(tables, conf["DLDP_A_0"]),
+                       dldp1=_on(tables, conf["DLDP_A_1"]))
+    if sens_path is not None:
+        wl, sens = load_sensitivity_ascii(sens_path)
+        wl_c = tables.wl_centers.cpu().numpy()
+        updates["sensitivity"] = _on(
+            tables, np.interp(wl_c, wl, sens, left=0.0, right=0.0))
+    if flat_path is not None:
+        updates["flat_coeffs"] = _on(tables,
+                                     load_flat_cube_fits(flat_path, subarray))
+    if sky_path is not None:
+        updates["sky_frame"] = _on(tables,
+                                   load_master_sky_fits(sky_path, subarray))
+    if sky_he_path is not None:
+        # STScI distributes the helium airglow image as its own sky
+        # component (same FITS layout as the master sky)
+        updates["sky_he_frame"] = _on(
+            tables, load_master_sky_fits(sky_he_path, subarray))
+    return dataclasses.replace(tables, **updates)

@@ -339,9 +339,9 @@ class ProgramConfig:
 @dataclass
 class CalibrationConfig:
     """Optional real STScI calibration products (YAML ``calibration:``
-    block). Empty paths keep the synthetic tables. Parsed here; the port
-    does not load the products yet and raises when one is given (only
-    ``sequence_file`` is applied). Reference: wayne ships the aXe conf,
+    block). Empty paths keep the synthetic tables; the loaders are in
+    :mod:`wayne_tpu_torch.calibration` (``sequence_file`` is applied by
+    ``sequence_tables_scope``). Reference: wayne ships the aXe conf,
     sensitivity, flat-cube and sky files in its data directory and loads
     them at Grism/Detector construction."""
 

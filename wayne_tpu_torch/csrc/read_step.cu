@@ -56,7 +56,9 @@
 // block, an exp and a 12-term sum) runs once per warp over the pixels that
 // take it, compacted in shared memory (detector.cuh, poisson_sample_warp),
 // rather than once for each of a thread's pixels wherever one lane of the
-// warp takes it.
+// warp takes it. With F_EXACT_POISSON a second instantiation of each kernel
+// runs detector.cuh's exact sampler instead, every positive-lambda pixel
+// through the same queue (the band's draw stays out of line).
 //
 // What bounds them on this card. Per launch at B = 8 and S = 512 the least
 // traffic of B2 is cum in and out, dn and the background plane (4 x 8.4 MB),
@@ -157,12 +159,16 @@ __device__ __forceinline__ float emit(float sig, const StepArgs& a,
 // The band's draw, compiled once rather than once per row of a thread:
 // the band covers few rows, and four inlined copies cost registers and
 // spills on every row (measured on an H100: no spills, 4% faster).
+template <bool EXACT>
 __device__ __noinline__ float add_band_call(float cum, float e, bool sampled,
                                             uint32_t k0, uint32_t k1,
                                             uint32_t read, uint32_t pix) {
-  return add_band(cum, e, sampled, k0, k1, read, pix);
+  return add_band<EXACT>(cum, e, sampled, k0, k1, read, pix);
 }
 
+// EXACT: the exact Poisson sampler (F_EXACT_POISSON), a second
+// instantiation of each kernel, so the default one keeps its code.
+template <bool EXACT>
 __global__ void __launch_bounds__(BX * BY, B2_MIN_BLOCKS)
 read_step_banded_kernel(StepArgs a) {
   extern __shared__ unsigned char smem_raw[];
@@ -242,14 +248,15 @@ read_step_banded_kernel(StepArgs a) {
     lam[j] = bg[j] * dt;
   }
   if (bg_poisson)
-    poisson_sample_warp<ROWS>(lam, z_bg, pix, k0, k1, rd, TAG_BG_UNIFORM, tx,
-                              s_queue[ty], lam);
+    poisson_sample_warp<ROWS, EXACT>(lam, z_bg, pix, k0, k1, rd,
+                                     TAG_BG_UNIFORM, tx, s_queue[ty], lam);
 #pragma unroll
   for (int j = 0; j < ROWS; ++j) {
     if (!valid[j]) continue;
     cum[j] = cum[j] + lam[j];
     if (in_band[j])
-      cum[j] = add_band_call(cum[j], band[j], poisson, k0, k1, rd, pix[j]);
+      cum[j] = add_band_call<EXACT>(cum[j], band[j], poisson, k0, k1, rd,
+                                    pix[j]);
   }
   if (with_cr) {
     __syncthreads();  // every warp's segment staged
@@ -308,6 +315,7 @@ __device__ __forceinline__ void load_px(const float* p, bool vec, int n,
   }
 }
 
+template <bool EXACT>
 __global__ void __launch_bounds__(BX * BY, B3_MIN_BLOCKS)
 read_step_kernel(StepArgs a) {
   __shared__ float2 s_queue[BY][BX * PX];  // each warp's small lambdas
@@ -353,8 +361,9 @@ read_step_kernel(StepArgs a) {
     lam[j] = lam[j] * dt;
   }
   if (bg_poisson)
-    poisson_sample_warp<PX>(lam, z_bg, pix, k0, k1, rd, TAG_BG_UNIFORM,
-                            threadIdx.x, s_queue[threadIdx.y], lam);
+    poisson_sample_warp<PX, EXACT>(lam, z_bg, pix, k0, k1, rd,
+                                   TAG_BG_UNIFORM, threadIdx.x,
+                                   s_queue[threadIdx.y], lam);
   float dn[PX];
 #pragma unroll
   for (int j = 0; j < PX; ++j) {
@@ -379,6 +388,27 @@ read_step_kernel(StepArgs a) {
   }
 }
 
+template <bool EXACT>
+int launch_banded(const StepArgs& a, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        read_step_banded_kernel<EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int h = (a.flags & F_IPC) ? 1 : 0;
+  const int tw = BX - 2 * h, th = TH - 2 * h;
+  const dim3 grid((a.S + tw - 1) / tw, (a.S + th - 1) / th, a.B);
+  read_step_banded_kernel<EXACT><<<grid, dim3(BX, BY), smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool EXACT>
+int launch_full_frame(const StepArgs& a, cudaStream_t stream) {
+  const dim3 grid((a.S + PX * BX - 1) / (PX * BX), (a.S + BY - 1) / BY, a.B);
+  read_step_kernel<EXACT><<<grid, dim3(BX, BY), 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -393,18 +423,9 @@ extern "C" int wayne_read_step_banded(
              nl, cr_pos, cr_q, cum_out, dn, B, W, S, n_cr, read,
              rn, fw, inv_fw, inv_gain_scalar, ipc_alpha, flags, false};
   const size_t smem = banded_smem(n_cr, flags);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        read_step_banded_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int h = (flags & F_IPC) ? 1 : 0;
-  const int tw = BX - 2 * h, th = TH - 2 * h;
-  const dim3 grid((S + tw - 1) / tw, (S + th - 1) / th, B);
-  read_step_banded_kernel<<<grid, dim3(BX, BY), smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (flags & F_EXACT_POISSON) ? launch_banded<true>(a, smem, st)
+                                   : launch_banded<false>(a, smem, st);
 }
 
 extern "C" int wayne_read_step(
@@ -423,8 +444,7 @@ extern "C" int wayne_read_step(
   a.vec = S % PX == 0 && aligned(cum_in) && aligned(add) &&
           aligned(bg_rate) && aligned(bias) && aligned(inv_gain) &&
           aligned(nl) && aligned(cum_out) && aligned(dn);
-  const dim3 grid((S + PX * BX - 1) / (PX * BX), (S + BY - 1) / BY, B);
-  read_step_kernel<<<grid, dim3(BX, BY), 0,
-                     static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (flags & F_EXACT_POISSON) ? launch_full_frame<true>(a, st)
+                                   : launch_full_frame<false>(a, st);
 }

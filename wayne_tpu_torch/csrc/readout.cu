@@ -54,6 +54,12 @@
 //     (background z, read-noise z), 1 the band's normal, 2 and 3 the
 //     small-lambda uniforms of the background and the band. A pixel takes
 //     the exact small-lambda branch on its own (the TPU gated a whole tile).
+//   * Exact Poisson (F_EXACT_POISSON, the JAX package's exact_poisson): a
+//     second instantiation of the kernel whose samplers are detector.cuh's
+//     exact_poisson_sample (Knuth below lambda = 10, PTRS above, on the
+//     blocks (k, y * S + x, tag 2 or 3, n)), out of line, each pixel on its
+//     own: the rejection loops diverge. The default instantiation is the
+//     code above, unchanged.
 //
 // What bounds it on this card. Per 512^2 exposure at 16 reads the least
 // traffic is the reads written (16 * 512^2 * 4 B = 16.8 MB), the charge
@@ -144,6 +150,9 @@ __device__ __forceinline__ void stage_hits(const Args& a, int b, int g0,
   }
 }
 
+// EXACT: the exact Poisson sampler (F_EXACT_POISSON), a second
+// instantiation, so the default one keeps its code and registers.
+template <bool EXACT>
 __global__ void __launch_bounds__(BX * BY, MIN_BLOCKS)
 exposure_readout_kernel(Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -227,11 +236,12 @@ exposure_readout_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < PY; ++j) {
         if (!valid[j]) continue;
-        cum[j] = add_background(cum[j], bg[j] * dt, bg_poisson, z_bg[j], k0,
-                                k1, rd, pix[j]);
+        cum[j] = add_background<EXACT>(cum[j], bg[j] * dt, bg_poisson,
+                                       z_bg[j], k0, k1, rd, pix[j]);
         if (y[j] >= y0 && y[j] < y0 + W)
-          cum[j] = add_band(cum[j], a.bands[(bk * W + (y[j] - y0)) * S + x],
-                            poisson, k0, k1, rd, pix[j]);
+          cum[j] = add_band<EXACT>(
+              cum[j], a.bands[(bk * W + (y[j] - y0)) * S + x], poisson, k0,
+              k1, rd, pix[j]);
       }
       if (with_cr)
         add_staged_hits<PY>(s_hits + static_cast<size_t>(k - g0) * a.n_cr,
@@ -278,6 +288,21 @@ exposure_readout_kernel(Args a) {
     if (interior[j]) a.cum_out[b * plane + pix[j]] = cum[j];
 }
 
+template <bool EXACT>
+int launch_exposure_readout(const Args& a, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        exposure_readout_kernel<EXACT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int h = (a.flags & F_IPC) ? 1 : 0;
+  const int tw = BX - 2 * h, th = TH - 2 * h;
+  const dim3 grid((a.S + tw - 1) / tw, (a.S + th - 1) / th, a.B);
+  exposure_readout_kernel<EXACT><<<grid, dim3(BX, BY), smem, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int wayne_exposure_readout(
@@ -292,16 +317,8 @@ extern "C" int wayne_exposure_readout(
          cr_pos, cr_q, reads, cum_out, B, NR, W, S, n_cr, G,
          rn, fw, inv_fw, inv_gain_scalar, ipc_alpha, flags};
   const size_t smem = readout_smem(NR, n_cr, G, flags);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        exposure_readout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int h = (flags & F_IPC) ? 1 : 0;
-  const int tw = BX - 2 * h, th = TH - 2 * h;
-  const dim3 grid((S + tw - 1) / tw, (S + th - 1) / th, B);
-  exposure_readout_kernel<<<grid, dim3(BX, BY), smem,
-                            static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  return (flags & F_EXACT_POISSON) ? launch_exposure_readout<true>(a, smem, st)
+                                   : launch_exposure_readout<false>(a, smem,
+                                                                    st);
 }

@@ -7,7 +7,9 @@ primary HDU plus IMAGE extensions with BITPIX -32 / 16 / 32 — and a reader
 for round-trip tests and downstream tooling.
 
 The byte layout is identical to the JAX package's writer, so products of
-the two packages are interchangeable.
+the two packages are interchangeable. The native C++ writer
+(wayne_tpu_torch/native, :mod:`wayne_tpu_torch.io.native`) assembles the
+same layout for ima products from headers this module renders.
 """
 
 from __future__ import annotations
@@ -180,6 +182,34 @@ class FitsHDU:
             # space-filled) — space padding here trips strict validators
             out += _pad(data.tobytes(), fill=b"\0")
         return out
+
+
+def header_only_bytes(*, primary: bool, name: str = "", ver: int = 1,
+                      shape: tuple[int, ...] = (), bitpix: int = -32,
+                      header: dict[str, Any] | None = None) -> bytes:
+    """Render just the (padded) header block for an HDU of known shape,
+    for the native writer, which streams the data section itself."""
+    cards: list[bytes] = []
+    if primary:
+        cards.append(card("SIMPLE", True, "conforms to FITS standard"))
+    else:
+        cards.append(card("XTENSION", "IMAGE", "image extension"))
+    cards.append(card("BITPIX", bitpix if shape else 8))
+    cards.append(card("NAXIS", len(shape)))
+    for i, n in enumerate(reversed(shape)):
+        cards.append(card(f"NAXIS{i + 1}", int(n)))
+    if not primary:
+        cards.append(card("PCOUNT", 0))
+        cards.append(card("GCOUNT", 1))
+        if name:
+            cards.append(card("EXTNAME", name))
+            cards.append(card("EXTVER", ver))
+    else:
+        cards.append(card("EXTEND", True, "file contains extensions"))
+    for key, value in (header or {}).items():
+        cards.append(card(key, value))
+    cards.append(card("END"))
+    return _pad(b"".join(cards))
 
 
 def write_fits(path: str, hdus: list[FitsHDU]) -> None:

@@ -23,7 +23,9 @@ from typing import Any, Mapping
 
 import numpy as np
 
-from wayne_tpu_torch.io.fits import FitsHDU, read_fits, write_fits
+from wayne_tpu_torch.io.fits import (
+    FitsHDU, header_only_bytes, read_fits, write_fits,
+)
 
 
 def default_primary_header(
@@ -86,16 +88,41 @@ def default_primary_header(
     return hdr
 
 
+def _ima_ext_headers(reads_shape: tuple[int, ...],
+                     read_times: np.ndarray) -> list[bytes]:
+    """Pre-rendered extension headers in file order (reverse time,
+    SCI/ERR/DQ/SAMP/TIME per read) for the native writer."""
+    nr, h, w = reads_shape
+    out: list[bytes] = []
+    for ver, k in enumerate(range(nr - 1, -1, -1), start=1):
+        meta = {"SAMPNUM": k, "SAMPTIME": float(read_times[k]),
+                "DELTATIM": float(read_times[k] - read_times[k - 1]) if k else 0.0}
+        for name, bitpix, extra in (("SCI", -32, {"BUNIT": "COUNTS"}),
+                                    ("ERR", -32, {}), ("DQ", 16, {}),
+                                    ("SAMP", 16, {}), ("TIME", -32, {})):
+            out.append(header_only_bytes(
+                primary=False, name=name, ver=ver, shape=(h, w),
+                bitpix=bitpix, header=dict(meta, **extra)))
+    return out
+
+
 def write_ima(path: str, reads_dn: np.ndarray, read_times: np.ndarray,
               primary: dict[str, Any], *, err: np.ndarray | None = None,
               dq: np.ndarray | None = None, gain: float = 2.5,
               read_noise_e: float = 20.0, bias_pedestal_e: float = 0.0,
+              use_native: bool = True,
               units: str = "counts",
               gain_map: np.ndarray | None = None,
               bias_e_map: np.ndarray | None = None) -> None:
     """Write one exposure as an ima-style FITS file.
 
-    Pure-Python writer; the byte layout matches the JAX package's.
+    The native C++ writer (:mod:`wayne_tpu_torch.io.native`, built with
+    g++ at first use) writes raw-DN products with the default ERR; rate
+    products (``units="e_per_s"``), an explicit ``err`` and
+    ``use_native=False`` take the Python writer. The two write the same
+    bytes but for ERR, which agrees to float32 rounding (rtol 1e-6). A
+    native library that cannot be built or loaded raises
+    (``NativeWriterError``): nothing falls back to the Python writer.
 
     Args:
       reads_dn: (NR, S, S) sampled reads in TIME order (read 0 first).
@@ -140,8 +167,17 @@ def write_ima(path: str, reads_dn: np.ndarray, read_times: np.ndarray,
         # consumer reading the per-extension BUNIT must not mistake
         # rate planes for raw DN
         sci_bunit = "ELECTRONS/S"
+        use_native = False   # rate planes take the Python writer
     elif units != "counts":
         raise ValueError(f"unknown units {units!r}")
+    if use_native and err is None:
+        from wayne_tpu_torch.io.native import write_ima_native
+        write_ima_native(path, reads_dn, read_times,
+                         header_only_bytes(primary=True, header=primary),
+                         _ima_ext_headers(reads_dn.shape, read_times), gain,
+                         read_noise_e, dq=dq, bias_dn=bias_pedestal_e / gain,
+                         gain_map=gain_map, bias_e_map=bias_e_map)
+        return
     nr = reads_dn.shape[0]
     hdus = [FitsHDU(name="", data=None, header=primary)]
     for ver, k in enumerate(range(nr - 1, -1, -1), start=1):

@@ -16,13 +16,17 @@ sources from the YAML, and the charge-memory maps (persistence, RECTE)
 computed once per Observation from one noise-free pass of the visit
 before the first chunk.
 
-Not ported yet (ROADMAP): ``mesh`` / multi-GPU sharding and
-``generate(debug=True)``.
+``generate(debug=True)`` also materialises ``ideal_e``, runs the NaN and
+range guards (:mod:`wayne_tpu_torch.utils.guards`) on each chunk's host
+copy and writes ``visit_summary.json``.
+
+Not ported yet (ROADMAP): ``mesh`` / multi-GPU sharding.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -60,6 +64,7 @@ from wayne_tpu_torch.ops.visit import (
 from wayne_tpu_torch.pytree import tree_map
 from wayne_tpu_torch.scene import CompanionParams, Scene
 from wayne_tpu_torch.trends import TrendParams
+from wayne_tpu_torch.utils.guards import check_exposure_result
 from wayne_tpu_torch.utils.spectra import blackbody_flam_um
 from wayne_tpu_torch.visit_plan import (
     HST_PERIOD_S, VisitPlan, plan_from_start_times, plan_visit,
@@ -85,6 +90,7 @@ class HostChunk:
     cr_pos: np.ndarray
     cr_count: np.ndarray
     saturated_frac: np.ndarray
+    ideal_e: np.ndarray | None = None   # (chunk, S, S), debug only
 
 
 def _build_spots(star_cfg, wl_centers: np.ndarray):
@@ -453,13 +459,24 @@ class Observation:
     # ------------------------------------------------------------------
     def generate(self, outdir: str | None = None, chunk: int = 8,
                  progress: Callable[[str], None] | None = None,
-                 resume: bool = True) -> list[str]:
+                 resume: bool = True, debug: bool = False) -> list[str]:
         """Simulate the visit and write it as ima-style FITS files (plus
-        the visit-opening direct image); returns the exposure paths."""
+        the visit-opening direct image); returns the exposure paths.
+
+        ``debug=True`` materialises ``ideal_e`` (copied to the host with
+        the chunk's other outputs), runs the NaN and range guards on every
+        chunk's host copy (``utils.guards.check_exposure_result``, raising
+        ``SimulationError``) and writes ``visit_summary.json`` with the JAX
+        package's keys. The default moves no extra bytes."""
         cfg = self.cfg
         outdir = outdir or cfg.outdir
         os.makedirs(outdir, exist_ok=True)
         say = progress or (lambda s: log.info("%s", s))
+        # the guards validate the noise-free ideal_e frame, so only the
+        # debug path pays to materialise it
+        static = (dataclasses.replace(self.static, compute_ideal=True)
+                  if debug else self.static)
+        self._summary: dict = {"exposures": [], "config": cfg.grism}
         self._write_direct_image(outdir, resume=resume)
         self._ensure_persistence(chunk)
         self._ensure_recte(chunk)
@@ -475,6 +492,8 @@ class Observation:
             reads = quantize_adc(res.reads_dn) if cfg.quantize_adc \
                 else res.reads_dn
             parts = (reads, res.cr_pos, res.cr_count, res.saturated_frac)
+            if debug:
+                parts += (res.ideal_e,)
             if self.device.type != "cuda":
                 return parts, None
             host = tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
@@ -489,12 +508,13 @@ class Observation:
             host, done = fetched
             if done is not None:
                 done.synchronize()
-            reads, cr_pos, cr_count, sat = (t.numpy() for t in host)
+            reads, cr_pos, cr_count, sat, *ideal = (t.numpy() for t in host)
             chunk_h = HostChunk(reads.astype(np.float32, copy=False),
-                                cr_pos, cr_count, sat)
+                                cr_pos, cr_count, sat,
+                                ideal[0] if ideal else None)
             futures.append(writer.submit(
                 self._write_chunk, c0, chunk_h, outdir, n, read_times,
-                gain, rn, resume, say))
+                gain, rn, resume, say, debug))
 
         futures: list = []
         with ThreadPoolExecutor(max_workers=1) as writer:
@@ -506,14 +526,22 @@ class Observation:
                     continue   # whole chunk already on disk: skip compute
                 sl = tree_map(lambda x: x[c0: c0 + chunk], scenes)
                 pending.append((c0, fetch(simulate_visit(
-                    sl, self.tables, self.static, chunk))))
+                    sl, self.tables, static, chunk))))
                 if len(pending) > 1:
                     write(*pending.pop(0))
             while pending:
                 write(*pending.pop(0))
         paths: list[str] = [p for f in futures for p in f.result()]
-        say(f"visit complete: {len(paths)} exposures in "
-            f"{time.time() - t_start:.2f}s -> {outdir}")
+        wall = time.time() - t_start
+        say(f"visit complete: {len(paths)} exposures in {wall:.2f}s -> "
+            f"{outdir}")
+        if debug:
+            self._summary.update(
+                n_exposures=n, wallclock_s=round(wall, 3),
+                exptime_s=self.detector_exptime, grism=cfg.grism,
+                nsamp=cfg.nsamp, samp_seq=cfg.samp_seq, scan=cfg.scan)
+            with open(os.path.join(outdir, "visit_summary.json"), "w") as fh:
+                json.dump(self._summary, fh, indent=2)
         return paths
 
     # ------------------------------------------------------------------
@@ -556,8 +584,11 @@ class Observation:
         return dq
 
     def _write_chunk(self, c0, res: HostChunk, outdir, n, read_times, gain,
-                     rn, resume, say) -> list[str]:
+                     rn, resume, say, debug=False) -> list[str]:
         _, bias_ped, gain_map, bias_e_map = self._detector_planes()
+        if debug:
+            stats = check_exposure_result(res, context=f"chunk@{c0}")
+            self._summary["exposures"].append(dict(chunk=c0, **stats))
         cfg = self.cfg
         scan_speed = self.scenes.scan_speed.cpu().numpy()
         paths = []

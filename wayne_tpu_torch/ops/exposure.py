@@ -33,8 +33,10 @@ routes that draw the same random numbers:
     (``sample_band``) plus the cosmic-ray hits; with the band off and IPC
     on, the banded step runs at W = S, y0 = 0.
 
-Not ported yet, and raising NotImplementedError with its ROADMAP item:
-``exact_poisson``.
+``exact_poisson`` draws every Poisson variate (the band, the background,
+the cosmic-ray count) from the exact law (``ops.random.exact_poisson``)
+instead of the three-regime sampler: in the readout, the kernels' second
+instantiation.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ from wayne_tpu_torch.ops.dispersion import (
 from wayne_tpu_torch.ops.psf import pixel_fractions_moving, pixel_fractions_static
 from wayne_tpu_torch.ops.random import (
     TAG_BIAS_DRIFT, TAG_CR_COUNT, TAG_CR_HIT, TAG_RTS, TAG_SSV_WALK,
-    box_muller, fast_poisson, key_words, philox4x32, uniform24,
+    box_muller, exact_poisson, fast_poisson, key_words, philox4x32,
+    uniform24,
 )
 from wayne_tpu_torch.ops.readout import (
     add_hits, exposure_readout, hit_ranks, read_step, read_step_banded,
@@ -77,13 +80,6 @@ class ExposureResult:
     cr_count: torch.Tensor       # (B, NSAMP) int32 hits per interval
 
 
-def _check_supported(cfg: ExposureStatic) -> None:
-    if cfg.exact_poisson:
-        raise NotImplementedError(
-            "not ported to wayne_tpu_torch yet: exact_poisson (ROADMAP "
-            "Queue A item 5b)")
-
-
 def _cosmic_rays(seed: torch.Tensor, tables: Tables, cfg: ExposureStatic,
                  dt: torch.Tensor):
     """Cosmic-ray hits of every read interval of every exposure.
@@ -91,7 +87,8 @@ def _cosmic_rays(seed: torch.Tensor, tables: Tables, cfg: ExposureStatic,
     MAX_CR candidate hits per read; the Poisson-distributed count masks the
     excess and is clamped to MAX_CR (it tallies hits actually deposited).
     Draws are Philox streams of the exposure seed (count: counter (read, 0,
-    TAG_CR_COUNT); hit i: counter (read, i, TAG_CR_HIT)).
+    TAG_CR_COUNT), the exact sampler's blocks (read, 0, TAG_CR_COUNT, n)
+    with ``exact_poisson``; hit i: counter (read, i, TAG_CR_HIT)).
 
     Returns (positions (B, R, 2, MAX_CR) int32, masked charges
     (B, R, MAX_CR), counts (B, R) int32).
@@ -101,10 +98,14 @@ def _cosmic_rays(seed: torch.Tensor, tables: Tables, cfg: ExposureStatic,
     k0, k1 = key_words(seed)
     rd = torch.arange(dt.shape[0], device=dev)
     lam = (tables.cr_rate_px_s * (S * S) * dt).expand(seed.shape[0], -1)
-    w0, w1, w2, _ = philox4x32(k0[:, None], k1[:, None], rd, 0,
-                               TAG_CR_COUNT, 0)
-    z, _ = box_muller(w0, w1)
-    n = torch.clamp_max(fast_poisson(lam, uniform24(w2), z), n_max)
+    if cfg.exact_poisson:
+        n = exact_poisson(lam, k0[:, None], k1[:, None], rd, 0, TAG_CR_COUNT)
+    else:
+        w0, w1, w2, _ = philox4x32(k0[:, None], k1[:, None], rd, 0,
+                                   TAG_CR_COUNT, 0)
+        z, _ = box_muller(w0, w1)
+        n = fast_poisson(lam, uniform24(w2), z)
+    n = torch.clamp_max(n, n_max)
     i = torch.arange(n_max, device=dev)
     h0, h1, h2, _ = philox4x32(k0[:, None, None], k1[:, None, None],
                                rd[:, None], i, TAG_CR_HIT, 0)
@@ -164,7 +165,6 @@ def simulate_exposure(scene: Scene, tables: Tables,
                       cfg: ExposureStatic) -> ExposureResult:
     """Simulate a batch of exposures (``scene`` leaves carry a leading
     exposure dimension B). See the module docstring for the pipeline."""
-    _check_supported(cfg)
     dev = tables.device
     S, K, R = cfg.subarray, cfg.n_sub, cfg.nsamp
     B = scene.n
@@ -355,7 +355,8 @@ def simulate_exposure(scene: Scene, tables: Tables,
         consts=tables.readout_consts,
         poisson=flags.poisson, read_noise=flags.read_noise,
         non_linearity=flags.non_linearity, bias=flags.bias,
-        scalar_gain=not flags.gain_variations, bg_poisson=has_bg)
+        scalar_gain=not flags.gain_variations, bg_poisson=has_bg,
+        exact_poisson=cfg.exact_poisson)
     if cfg.fused_reads:
         reads_dn, cum = exposure_readout(
             y0s=y0s.contiguous(), dts=dts.contiguous(),
@@ -408,7 +409,8 @@ def _read_by_read(y0s, dts, frames, cr_pos, cr_q, flags, readout):
             band = frames[:, k - 1]
         if full_frame:
             if flags.poisson and k:
-                band = sample_band(seed, k, y0s[k], band)
+                band = sample_band(seed, k, y0s[k], band,
+                                   readout["exact_poisson"])
             if flags.cosmic_rays:
                 band = add_hits(band, cr_pos[k], cr_q[k], ranks[k], n_ranks)
             cum, dn = read_step(read=k, dt=dts[k], cum=cum,

@@ -14,6 +14,8 @@ compare distributions, never bits.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -146,3 +148,100 @@ def fast_poisson(lam: torch.Tensor, u: torch.Tensor,
     pos = lam > 0.0
     return torch.where(pos & (lam < T_EXACT), k,
                        torch.where(pos, gauss, zero))
+
+
+# --- the exact sampler (ExposureStatic.exact_poisson) ----------------------
+# The same law as jax.random.poisson: Knuth's product of uniforms (as a sum
+# of logs) below EXACT_T, Hoermann's PTRS transformed rejection above it.
+# Every constant is a float32 value, written the same in csrc/detector.cuh.
+EXACT_T = 10.0
+KNUTH_BLOCKS = 12      # Philox blocks of the Knuth branch: 48 uniforms
+PTRS_BLOCKS = 8        # Philox blocks of the PTRS branch: 16 attempts
+
+
+def _f(x: float) -> float:
+    """x rounded to float32 (a Python float, so torch applies it exactly)."""
+    return float(np.float32(x))
+
+
+LOG_FACTORIAL = tuple(_f(math.lgamma(k + 1.0)) for k in range(16))
+_HALF_LOG_2PI = _f(0.5 * math.log(2.0 * math.pi))
+_INV12, _INV360 = _f(1.0 / 12.0), _f(1.0 / 360.0)
+
+
+def log_factorial(k: torch.Tensor) -> torch.Tensor:
+    """log k! of float32 integers k >= 0: the table LOG_FACTORIAL below 16,
+    else the Stirling series (k + 1/2) log k - k + log(2 pi)/2 + 1/(12 k)
+    - 1/(360 k^3), in the kernel's order of operations."""
+    table = torch.tensor(LOG_FACTORIAL, dtype=torch.float32, device=k.device)
+    small = table[torch.where((k >= 0.0) & (k < 16.0), k, 0.0).long()]
+    r = torch.reciprocal(k)
+    big = (((k + 0.5) * torch.log(k) - k)
+           + (_HALF_LOG_2PI + r * (_INV12 - (r * r) * _INV360)))
+    return torch.where(k < 16.0, small, big)
+
+
+def _over(c: float, t: torch.Tensor) -> torch.Tensor:
+    """c / t as one rounded division (Python's ``c / t`` multiplies by
+    t's reciprocal)."""
+    return torch.full_like(t, c) / t
+
+
+def exact_poisson(lam: torch.Tensor, k0, k1, read, pix,
+                  tag: int) -> torch.Tensor:
+    """Poisson(lam) as float32 from the exact law, on the Philox counters
+    (read, pix, tag, n) of key (k0, k1), n = 0, 1, ... the block: the plain
+    version of csrc/detector.cuh's ``exact_poisson_sample``, with its
+    arithmetic, so the two agree to the bit on the card. Arguments after
+    ``lam`` broadcast against it as for :func:`philox4x32`.
+
+    lam <= 0 gives exactly 0. 0 < lam < EXACT_T: Knuth's method, K = the
+    number of uniforms u_1, u_2, ... whose log-sum stays above -lam (the
+    words of blocks 0..KNUTH_BLOCKS-1 in order, so at most 47). lam >=
+    EXACT_T: PTRS, attempt i on the pair (words 2 (i % 2), 2 (i % 2) + 1)
+    of block i // 2, the first accepted; round(lam) if none of the
+    2 PTRS_BLOCKS attempts is (probability ~1e-16).
+
+    The kernel stops at the first accepted draw; here every attempt runs
+    on every element (masked), which gives the same values."""
+    dev = lam.device
+    last = lambda v: v[..., None] if isinstance(v, torch.Tensor) else v
+
+    def uniforms(n_blocks: int) -> torch.Tensor:
+        words = philox4x32(last(k0), last(k1), last(read), last(pix), tag,
+                           torch.arange(n_blocks, device=dev))
+        return uniform24(torch.stack(words, dim=-1)).flatten(-2)
+
+    shape = torch.broadcast_shapes(
+        lam.shape, *(v.shape for v in (k0, k1, read, pix)
+                     if isinstance(v, torch.Tensor)))
+    lam = lam.expand(shape)
+    # Knuth: k counts the checks s > -lam before each uniform's log
+    logu = torch.log(uniforms(KNUTH_BLOCKS))
+    neg = -lam
+    s = torch.zeros(shape, dtype=torch.float32, device=dev)
+    k = torch.zeros_like(s)
+    for i in range(4 * KNUTH_BLOCKS):
+        k = k + (s > neg).to(torch.float32)
+        s = s + logu[..., i]
+    knuth = k - 1.0
+
+    # PTRS
+    w = uniforms(PTRS_BLOCKS)
+    u, v = w[..., 0::2] - 0.5, w[..., 1::2]
+    lam1 = lam[..., None]
+    b = _f(0.931) + _f(2.53) * torch.sqrt(lam1)
+    a = _f(-0.059) + _f(0.02483) * b
+    inv_alpha = _f(1.1239) + _over(_f(1.1328), b - _f(3.4))
+    v_r = _f(0.9277) - _over(_f(3.6224), b - 2.0)
+    us = 0.5 - torch.abs(u)
+    kk = torch.floor((2.0 * a / us + b) * u + lam1 + _f(0.43))
+    lhs = torch.log(v * inv_alpha / (a / (us * us) + b))
+    rhs = (-lam1 + kk * torch.log(lam1)) - log_factorial(kk)
+    reject = (kk < 0.0) | ((us < _f(0.013)) & (v > us))
+    accept = ((us >= _f(0.07)) & (v <= v_r)) | (~reject & (lhs <= rhs))
+    first = accept.to(torch.int32).argmax(dim=-1, keepdim=True)
+    ptrs = torch.where(accept.any(dim=-1), kk.gather(-1, first)[..., 0],
+                       torch.round(lam))
+    out = torch.where(lam < EXACT_T, knuth, ptrs)
+    return torch.where(lam > 0.0, out, torch.zeros_like(out))

@@ -29,10 +29,13 @@ emits the bias frame.
 
 Randomness is Philox4x32-10 keyed by the exposure's two seed words, with
 counter (k, y * S + x, stream tag, 0) and k the emitted read index (see
-:mod:`wayne_tpu_torch.ops.random`). All three kernels and their plain
-versions draw the same numbers, so the per-read path draws exactly what
-the whole-exposure path draws; which pixel a thread owns never changes a
-draw.
+:mod:`wayne_tpu_torch.ops.random`). ``exact_poisson=True`` draws the band
+and the background from the exact Poisson law instead
+(:func:`~wayne_tpu_torch.ops.random.exact_poisson`, counters (k, y * S +
+x, tag, n) over the blocks n), the kernels' second instantiation. All
+three kernels and their plain versions draw the same numbers, so the
+per-read path draws exactly what the whole-exposure path draws; which
+pixel a thread owns never changes a draw.
 
 Each wrapper takes the plain version for CPU tensors and launches its
 kernel for CUDA tensors; there is no fallback between them. Each counts
@@ -52,6 +55,7 @@ import threading
 import numpy as np
 import torch
 
+from wayne_tpu_torch.ops import random as rnd
 from wayne_tpu_torch.ops.random import (
     T_EXACT, TAG_BAND_NORMAL, TAG_BAND_UNIFORM, TAG_BG_UNIFORM,
     TAG_BOX_MULLER, box_muller, fast_poisson, key_words, philox4x32,
@@ -64,6 +68,7 @@ MAX_READS_PER_CALL = 16
 # flag bits shared with csrc/detector.cuh
 _F_POISSON, _F_READ_NOISE, _F_NONLIN, _F_BIAS = 1, 2, 4, 8
 _F_SCALAR_GAIN, _F_CR, _F_BG_POISSON, _F_IPC = 16, 32, 64, 128
+_F_EXACT_POISSON = 256
 
 
 def _small_lambda_uniform(lam, k0, k1, k, pix, tag) -> torch.Tensor:
@@ -95,8 +100,9 @@ def _scalars(consts) -> tuple[float, float, float, float, float]:
 
 def _flag_bits(*, poisson=False, read_noise=False, non_linearity=False,
                bias=False, scalar_gain=False, with_cr=False,
-               bg_poisson=False, ipc=False) -> int:
-    return ((_F_POISSON if poisson else 0)
+               bg_poisson=False, ipc=False, exact_poisson=False) -> int:
+    return ((_F_EXACT_POISSON if exact_poisson else 0)
+            | (_F_POISSON if poisson else 0)
             | (_F_READ_NOISE if read_noise else 0)
             | (_F_NONLIN if non_linearity else 0) | (_F_BIAS if bias else 0)
             | (_F_SCALAR_GAIN if scalar_gain else 0)
@@ -109,10 +115,12 @@ def _flag_bits(*, poisson=False, read_noise=False, non_linearity=False,
 # ---------------------------------------------------------------------------
 
 def sample_band(seed: torch.Tensor, read: int, y0: torch.Tensor,
-                band: torch.Tensor) -> torch.Tensor:
+                band: torch.Tensor, exact_poisson: bool = False
+                ) -> torch.Tensor:
     """Poisson(band) on the whole-exposure kernel's counters: band element
     (r, x) of exposure b draws at pixel (y0_b + r) * S + x of read
-    ``read``, tags TAG_BAND_NORMAL and TAG_BAND_UNIFORM.
+    ``read``, tags TAG_BAND_NORMAL and TAG_BAND_UNIFORM (the exact sampler:
+    TAG_BAND_UNIFORM only).
 
     seed (B, 2) int32, y0 (B,) int32, band (B, W, S) expected electrons.
     """
@@ -122,6 +130,9 @@ def sample_band(seed: torch.Tensor, read: int, y0: torch.Tensor,
     k0p, k1p = k0[:, None, None], k1[:, None, None]
     rows = y0.long()[:, None, None] + torch.arange(W, device=dev)[:, None]
     bpix = rows * S + torch.arange(S, device=dev)
+    if exact_poisson:
+        return rnd.exact_poisson(band, k0p, k1p, read, bpix,
+                                 TAG_BAND_UNIFORM)
     n0, n1, _, _ = philox4x32(k0p, k1p, read, bpix, TAG_BAND_NORMAL, 0)
     return fast_poisson(band, _small_lambda_uniform(
         band, k0p, k1p, read, bpix, TAG_BAND_UNIFORM), box_muller(n0, n1)[0])
@@ -173,7 +184,8 @@ def _normals(seed, read, S, dev) -> tuple[torch.Tensor, torch.Tensor]:
     return box_muller(b0, b1)
 
 
-def _add_background(cum, lam, sampled, z_bg, seed, read) -> torch.Tensor:
+def _add_background(cum, lam, sampled, z_bg, seed, read,
+                    exact: bool = False) -> torch.Tensor:
     if not sampled:
         return cum + lam
     S = lam.shape[-1]
@@ -181,6 +193,9 @@ def _add_background(cum, lam, sampled, z_bg, seed, read) -> torch.Tensor:
     k0p, k1p = k0[:, None, None], k1[:, None, None]
     pix = torch.arange(S * S, device=lam.device,
                        dtype=torch.int64).view(1, S, S)
+    if exact:
+        return cum + rnd.exact_poisson(lam, k0p, k1p, read, pix,
+                                       TAG_BG_UNIFORM)
     return cum + fast_poisson(lam, _small_lambda_uniform(
         lam, k0p, k1p, read, pix, TAG_BG_UNIFORM), z_bg)
 
@@ -217,8 +232,8 @@ def read_step_banded_plain(
         consts, *, poisson: bool = True, read_noise: bool = True,
         non_linearity: bool = True, bias: bool = True,
         scalar_gain: bool = False, with_cr: bool = True,
-        bg_poisson: bool = True,
-        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        bg_poisson: bool = True, ipc: bool = False,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the banded read step on an ALREADY SAMPLED
     band (:func:`sample_band`; otherwise the same arguments as
     :func:`read_step_banded`, the same arithmetic and Philox draws): the
@@ -231,7 +246,7 @@ def read_step_banded_plain(
     if sampled or read_noise:
         z_bg, z_rn = _normals(seed, read, S, dev)
     cum = _add_background(cum, bg_rate * dt[:, None, None], sampled, z_bg,
-                          seed, read)
+                          seed, read, exact_poisson)
     ridx = (y0.long()[:, None] + torch.arange(W, device=dev)
             )[:, :, None].expand(B, W, S)
     cum = cum.scatter(1, ridx, torch.gather(cum, 1, ridx) + band)
@@ -248,8 +263,8 @@ def read_step_plain(
         inv_gain: torch.Tensor, nl_coeffs: torch.Tensor, consts, *,
         poisson: bool = True, read_noise: bool = True,
         non_linearity: bool = True, bias: bool = True,
-        scalar_gain: bool = False,
-        bg_poisson: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        scalar_gain: bool = False, bg_poisson: bool = True,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the full-frame read step (same arguments
     as :func:`read_step`; same arithmetic, same Philox draws)."""
     sampled = poisson and bg_poisson
@@ -257,7 +272,7 @@ def read_step_plain(
     if sampled or read_noise:
         z_bg, z_rn = _normals(seed, read, add.shape[-1], add.device)
     cum = _add_background(cum + add, bg_rate * dt[:, None, None], sampled,
-                          z_bg, seed, read)
+                          z_bg, seed, read, exact_poisson)
     return cum, _emit(cum, nl_coeffs, bias_map, inv_gain, z_rn, consts,
                       non_linearity=non_linearity, ipc=False, bias=bias,
                       read_noise=read_noise, scalar_gain=scalar_gain)
@@ -271,8 +286,8 @@ def exposure_readout_plain(
         poisson: bool = True, read_noise: bool = True,
         non_linearity: bool = True, bias: bool = True,
         scalar_gain: bool = False, with_cr: bool = True,
-        bg_poisson: bool = True,
-        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        bg_poisson: bool = True, ipc: bool = False,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the whole-exposure kernel (same arguments
     as :func:`exposure_readout`; same arithmetic, same Philox draws): the
     banded read step for every read, each band sampled first."""
@@ -283,13 +298,14 @@ def exposure_readout_plain(
     for k in range(NR):
         band = bands[:, k]
         if poisson:
-            band = sample_band(seed, k, y0s[:, k], band)
+            band = sample_band(seed, k, y0s[:, k], band, exact_poisson)
         cum, reads[:, k] = read_step_banded_plain(
             seed, k, y0s[:, k], dts[:, k], cum, band, bg_rate, bias_map,
             inv_gain, nl_coeffs, cr_pos[:, k], cr_q[:, k], consts,
             poisson=poisson, read_noise=read_noise,
             non_linearity=non_linearity, bias=bias, scalar_gain=scalar_gain,
-            with_cr=with_cr, bg_poisson=bg_poisson, ipc=ipc)
+            with_cr=with_cr, bg_poisson=bg_poisson, ipc=ipc,
+            exact_poisson=exact_poisson)
     return reads, cum
 
 
@@ -429,8 +445,8 @@ def exposure_readout(
         poisson: bool = True, read_noise: bool = True,
         non_linearity: bool = True, bias: bool = True,
         scalar_gain: bool = False, with_cr: bool = True,
-        bg_poisson: bool = True,
-        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        bg_poisson: bool = True, ipc: bool = False,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Every read of a chunk in one call.
 
     Per-read arrays are indexed by EMITTED read (read 0 = zero entries).
@@ -449,6 +465,9 @@ def exposure_readout(
         ipc_alpha), a sequence of floats or a CPU tensor, so that a launch
         reads nothing back from the card; the scalar gain is used when
         ``scalar_gain``.
+      exact_poisson: draw the band and the background from the exact
+        Poisson law (``ops.random.exact_poisson``; the kernel's second
+        instantiation) instead of the three-regime sampler.
 
     Returns:
       (reads_dn (B, NR, S, S) in time order, final cum (B, S, S)).
@@ -459,7 +478,7 @@ def exposure_readout(
     flags = dict(poisson=poisson, read_noise=read_noise,
                  non_linearity=non_linearity, bias=bias,
                  scalar_gain=scalar_gain, with_cr=with_cr,
-                 bg_poisson=bg_poisson, ipc=ipc)
+                 bg_poisson=bg_poisson, ipc=ipc, exact_poisson=exact_poisson)
     if bands.device.type == "cpu":
         return exposure_readout_plain(
             seed, y0s, dts, bands, bg_rate, bias_map, inv_gain, nl_coeffs,
@@ -503,7 +522,8 @@ def read_step_banded(
         non_linearity: bool = True, bias: bool = True,
         scalar_gain: bool = False, with_cr: bool = True,
         bg_poisson: bool = True,
-        ipc: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        ipc: bool = False,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One read of a chunk of B exposures: the background Poisson-sampled
     on top of ``cum``, the band Poisson-sampled at its rows (on the
     whole-exposure kernel's counters, :func:`sample_band`), the cosmic-ray
@@ -526,7 +546,8 @@ def read_step_banded(
       consts: four host scalars (read_noise_e, full_well_e, gain,
         ipc_alpha).
       The band is sampled when ``poisson``, the background when
-      ``poisson`` and ``bg_poisson``.
+      ``poisson`` and ``bg_poisson``; both from the exact law when
+      ``exact_poisson``.
 
     Returns:
       (cum after the read (B, S, S), read DN (B, S, S)).
@@ -535,10 +556,10 @@ def read_step_banded(
     flags = dict(poisson=poisson, read_noise=read_noise,
                  non_linearity=non_linearity, bias=bias,
                  scalar_gain=scalar_gain, with_cr=with_cr,
-                 bg_poisson=bg_poisson, ipc=ipc)
+                 bg_poisson=bg_poisson, ipc=ipc, exact_poisson=exact_poisson)
     if band.device.type == "cpu":
         if poisson:
-            band = sample_band(seed, read, y0, band)
+            band = sample_band(seed, read, y0, band, exact_poisson)
         return read_step_banded_plain(
             seed, read, y0, dt, cum, band, bg_rate, bias_map, inv_gain,
             nl_coeffs, cr_pos, cr_q, consts, **flags)
@@ -579,8 +600,8 @@ def read_step(
         inv_gain: torch.Tensor, nl_coeffs: torch.Tensor, consts, *,
         poisson: bool = True, read_noise: bool = True,
         non_linearity: bool = True, bias: bool = True,
-        scalar_gain: bool = False,
-        bg_poisson: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+        scalar_gain: bool = False, bg_poisson: bool = True,
+        exact_poisson: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """One full-frame read of a chunk of B exposures, without IPC:
     ``cum = (cum + add) + Poisson(bg_rate * dt)``, then the readout chain.
 
@@ -597,7 +618,8 @@ def read_step(
     B, S, _ = add.shape
     flags = dict(poisson=poisson, read_noise=read_noise,
                  non_linearity=non_linearity, bias=bias,
-                 scalar_gain=scalar_gain, bg_poisson=bg_poisson)
+                 scalar_gain=scalar_gain, bg_poisson=bg_poisson,
+                 exact_poisson=exact_poisson)
     if add.device.type == "cpu":
         return read_step_plain(seed, read, dt, cum, add, bg_rate, bias_map,
                                inv_gain, nl_coeffs, consts, **flags)

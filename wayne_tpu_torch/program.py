@@ -99,8 +99,11 @@ class Program:
 
     def generate(self, outdir: str, chunk: int = 8,
                  progress: Callable[[str], None] | None = None,
-                 resume: bool = True) -> list[list[str]]:
-        """Simulate every visit; returns the paths each visit wrote."""
+                 resume: bool = True,
+                 debug: bool = False) -> list[list[str]]:
+        """Simulate every visit; returns the paths each visit wrote.
+        ``debug``: each visit's ``generate(debug=True)`` (guards and its
+        ``visit_summary.json``)."""
         from wayne_tpu_torch.observation import Observation
 
         say = progress if progress is not None else (lambda s: None)
@@ -131,7 +134,7 @@ class Program:
                 f"(MJD {vcfg.start_mjd:.4f})")
             obs = Observation(vcfg, device=self.device)
             paths = obs.generate(vdir, chunk=chunk, resume=resume,
-                                 progress=progress)
+                                 progress=progress, debug=debug)
             all_paths.append(paths)
             entry = {"dir": os.path.basename(vdir),
                      "start_mjd": vcfg.start_mjd,

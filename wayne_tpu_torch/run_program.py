@@ -11,8 +11,8 @@ as ima products; the carried fluence maps and ``program_summary.json``
 record the cross-visit state.
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
-``--debug`` (``generate(debug=True)``, ROADMAP Queue A item 5b) raises
-NotImplementedError.
+``--debug`` runs each visit's ``generate(debug=True)``: the NaN and range
+guards and a ``visit_summary.json`` per visit directory.
 """
 
 from __future__ import annotations
@@ -35,13 +35,9 @@ def main(argv: list[str] | None = None) -> int:
                         help="run the plain PyTorch path on the CPU")
     parser.add_argument("--no-resume", action="store_true")
     parser.add_argument("--debug", action="store_true",
-                        help="NaN/range guards and visit summaries (not "
-                             "ported yet)")
+                        help="NaN/range guards and a visit_summary.json "
+                             "per visit")
     args = parser.parse_args(argv)
-    if args.debug:
-        raise NotImplementedError(
-            "run_program --debug: generate(debug=True) is not ported to "
-            "wayne_tpu_torch yet (ROADMAP Queue A item 5b)")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from wayne_tpu_torch.config import load_yaml
@@ -55,7 +51,7 @@ def main(argv: list[str] | None = None) -> int:
           f"persistence carry: {'on' if prog.carry else 'off'}; "
           f"t0 drift {cfg.program.t0_drift_s_per_visit:+.1f} s/visit)")
     all_paths = prog.generate(outdir, chunk=args.chunk, progress=print,
-                              resume=not args.no_resume)
+                              resume=not args.no_resume, debug=args.debug)
     total = sum(len(p) for p in all_paths)
     print(f"wrote {total} exposures over {len(all_paths)} visits "
           f"to {outdir}")

@@ -4,6 +4,8 @@
 Usage:
     python -m wayne_tpu_torch.run_visit -p pars.yml [-o outdir] [--chunk N]
     python -m wayne_tpu_torch.run_visit -p pars.yml --cpu   # plain CPU path
+    python -m wayne_tpu_torch.run_visit -p pars.yml --debug # + guards and
+                                                  # visit_summary.json
     python -m wayne_tpu_torch.run_visit --example > example_pars.yml
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
@@ -78,6 +80,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="run the plain PyTorch path on the CPU")
     parser.add_argument("--no-resume", action="store_true",
                         help="rewrite exposures even if files exist")
+    parser.add_argument("--debug", action="store_true",
+                        help="run NaN/saturation guards + visit_summary.json")
     parser.add_argument("--example", action="store_true",
                         help="print an example parameter file and exit")
     args = parser.parse_args(argv)
@@ -102,7 +106,7 @@ def main(argv: list[str] | None = None) -> int:
           f"NSAMP={cfg.nsamp} ({obs.detector_exptime:.1f}s each) over "
           f"{cfg.n_orbits} orbits")
     paths = obs.generate(cfg.outdir, chunk=args.chunk, progress=print,
-                         resume=not args.no_resume)
+                         resume=not args.no_resume, debug=args.debug)
     print(f"wrote {len(paths)} exposures to {cfg.outdir}")
     return 0
 
