@@ -98,6 +98,7 @@ import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1024,8 +1025,12 @@ _STEP_FLAGS = ("poisson", "read_noise", "non_linearity", "bias",
                "scalar_gain", "with_cr", "bg_poisson", "ipc", "exact_poisson")
 
 
-def kernels_in(fn) -> int:
-    """The CUDA kernels ``fn()`` launches (``torch.profiler``)."""
+def kernels_in(fn, records: bool = False):
+    """The CUDA kernels ``fn()`` launches, counted as the host's launch
+    calls (``cudaLaunchKernel`` and kin) in a ``torch.profiler`` trace.
+    CUPTI drops a few of the device's kernel records in a trace of
+    ~16 000 kernels (1-3 a trace on the H100), never a launch call; with
+    ``records`` also the kernel records the trace kept."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1035,8 +1040,15 @@ def kernels_in(fn) -> int:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = prof.profiler.kineto_results.events()
+    calls = sum(1 for e in events
+                if re.match(r"cu(da)?Launch\w*Kernel", e.name()))
+    if not records:
+        return calls
+    kept = sum(1 for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA
+               and not re.match(r"(Memcpy|Memset)", e.name()))
+    return calls, kept
 
 
 def _synced(fn):
@@ -1727,6 +1739,316 @@ def phase_compat(card: str) -> int:
     return b1
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the closed reduction loop
+# ---------------------------------------------------------------------------
+
+RECOVER_CHAN = 8            # run_dataset --recover's channels
+
+
+def _flt_planes(path: str) -> dict:
+    """An flt file's extensions by name (the port's FITS reader)."""
+    from wayne_tpu_torch.io.fits import read_fits
+    return {h.get("EXTNAME"): d for h, d in read_fits(path)[1:]}
+
+
+def _auto_windows(nets) -> tuple:
+    """(y_window, x_window, bg_rows) of a visit from its median net frame
+    (n_exp, S, S), by the JAX package's run_reduce rule: rows above 5% of
+    the peak row sum, columns above 10% within them, 3 px of padding; sky
+    rows the larger margin beyond a 12-px gap."""
+    import torch
+    med = torch.median(nets, dim=0).values.cpu().double()
+    S, pad = med.shape[-1], 3
+    row = med.sum(dim=1)
+    row = row - row.median()
+    rows = torch.nonzero(row > 0.05 * row.max()).flatten()
+    y = (max(int(rows.min()) - pad, 0), min(int(rows.max()) + pad + 1, S))
+    col = med[y[0]: y[1]].sum(dim=0)
+    col = col - col.median()
+    cols = torch.nonzero(col > 0.1 * col.max()).flatten()
+    x = (max(int(cols.min()) - pad, 0), min(int(cols.max()) + pad + 1, S))
+    gap = 4 * pad
+    bg = max((min(y[1] + gap, S), S), (0, max(y[0] - gap, 0)),
+             key=lambda r: r[1] - r[0])
+    return y, x, bg
+
+
+def phase_reduction(card: str) -> int:
+    """The closed loop on the card: (a) ``generate()`` of the headline
+    visit's first orbit (B1 against its plain version on its first chunk);
+    (b) ``run_calwf3`` on its ima files on the card and with ``--cpu``
+    (SCI / ERR within rtol 1e-5 and 1e-3 e-/s, DQ, SAMP and TIME exact),
+    ``reduce_visit`` of the files' reads on the card and on the CPU (light
+    curves within 5e-6) and ``divide_white_fit_depths`` on the card's
+    curves; (c) ``run_dataset --recover 8`` on the whole headline visit
+    (B1 against its plain version on the first batch; recovered depths
+    within max(6 sigma, 0.01) of the injected ones; the card's labels
+    against a CPU ``spectra_to_depths`` of the stored spectra; the
+    launches of one ``spectra_to_depths`` the same at 4 and 8 channels),
+    each timed. Returns B1's launches."""
+    import numpy as np
+    import torch
+
+    import wayne_tpu_torch.parallel.dataset as dataset
+    from wayne_tpu_torch import reduction as red
+    from wayne_tpu_torch import run_calwf3, run_dataset
+    from wayne_tpu_torch.calibration import quadrant_map
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.io.ima import read_ima
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.pytree import tree_map
+
+    launches = 0
+    print(f"phase 9: the closed reduction loop, "
+          f"{os.path.relpath(HEADLINE, HERE)}")
+    with tempfile.TemporaryDirectory() as d:
+        with open(HEADLINE) as fh:
+            text = fh.read()
+        cut = f"num_orbits: {ORBITS}\n"
+        yml = os.path.join(d, "orbit.yml")
+        with open(yml, "w") as fh:
+            fh.write(text.replace("num_orbits: 4\n", cut))
+        cfg = load_yaml(yml)
+        obs = Observation(cfg)
+        n = obs.plan.n_exposures
+        visit = os.path.join(d, "visit")
+        ro.exposure_readout.launches = 0
+        (paths, t_gen), recorded = recorded_readout(lambda: _synced(
+            lambda: obs.generate(visit, chunk=CHUNK,
+                                 progress=lambda s: None)))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        check(cfg.n_orbits == ORBITS and len(paths) == n
+              and b1 == math.ceil(n / CHUNK) + 1,
+              f"phase 9a: generate() of the first orbit: {len(paths)} ima "
+              f"files, {b1} B1 launches ({math.ceil(n / CHUNK)} chunks + "
+              f"the direct image) in {t_gen:.3f} s [{card}]")
+        hold_recorded(ro, recorded, "phase 9a", "generate()'s first chunk")
+        del recorded
+
+        # (b) calwf3 on the card and on the CPU
+        flt = {}
+        for where, extra in (("card", []), ("cpu", ["--cpu"])):
+            flt[where] = os.path.join(d, f"flt_{where}")
+            said = io.StringIO()
+            with contextlib.redirect_stderr(said):
+                rc, wall = _synced(lambda: run_calwf3.main(
+                    ["-d", visit, "-p", yml, "-o", flt[where]] + extra))
+            check(rc == 0 and len(os.listdir(flt[where])) == n,
+                  f"run_calwf3 {' '.join(extra) or 'on the card'}: {n} flt "
+                  f"files")
+            print(f"timing [{card}]: run_calwf3 ({where}) "
+                  f"{wall / n:.4f} s per file ({n} files, {wall:.3f} s)")
+        names = sorted(os.listdir(flt["card"]))
+        gap, within, differ = {"SCI": 0.0, "ERR": 0.0}, True, set()
+        for name in names:
+            a = _flt_planes(os.path.join(flt["card"], name))
+            b = _flt_planes(os.path.join(flt["cpu"], name))
+            for ext in gap:
+                within &= np.allclose(a[ext], b[ext], rtol=1e-5, atol=1e-3)
+                gap[ext] = max(gap[ext], float(np.abs(a[ext] - b[ext]).max()))
+            differ |= {e for e in ("DQ", "SAMP", "TIME")
+                       if not np.array_equal(a[e], b[e])}
+        same = not differ
+        sci = _flt_planes(os.path.join(flt["card"], names[0]))["SCI"]
+        check(within and same and np.isfinite(sci).all()
+              and sci.shape == (cfg.subarray,) * 2 and float(sci.max()) > 10.0,
+              f"run_calwf3: every file's SCI and ERR card = CPU within rtol "
+              f"1e-5, atol 1e-3 e-/s (largest gaps {gap['SCI']:.3g} and "
+              f"{gap['ERR']:.3g} e-/s), DQ, SAMP and TIME identical "
+              f"(differing: {sorted(differ) or 'none'}); SCI finite, peak "
+              f"{float(sci.max()):.1f} e-/s")
+
+        # reduce_visit of the files' reads, card and CPU
+        reads, dqs = [], []
+        for p in paths:
+            _, r, _, q = read_ima(p, with_dq=True)
+            reads.append(r)
+            dqs.append(q)
+        reads = torch.from_numpy(np.stack(reads).astype(np.float32))
+        dqs = torch.from_numpy(np.stack(dqs))
+        sc = obs.scenes
+        mid = sc.exp_start_s + float(obs.tables.read_times[-1]) / 2.0
+        orbit = tree_map(lambda x: x[0], sc.orbit)
+        ld = sc.ld[0] if sc.ld.dim() == 2 else sc.ld[0].mean(dim=0)
+        y_win, x_win, bg_rows = _auto_windows(
+            (reads[:, -1] - reads[:, 0]).to("cuda"))
+        print(f"  windows from the median net frame: rows {y_win}, columns "
+              f"{x_win}, sky rows {bg_rows}")
+        curves = {}
+        # no align: the first orbit holds no transit, and without one the
+        # drift regressor's contamination solve has no signal to fit
+        # (tests/test_torch_cuda.py holds align on a visit with a transit)
+        for opts in ("box", "optimal"):
+            for where in ("cuda", "cpu"):
+                dev = torch.device(where)
+                kw = dict(y_window=y_win, x_window=x_win, bg_rows=bg_rows,
+                          n_chan=RECOVER_CHAN,
+                          good_diffs=red.good_diff_masks_from_dq(
+                              dqs.to(dev)),
+                          quad_map=quadrant_map(
+                              cfg.subarray,
+                              obs.tables.subarray_corner.tolist(),
+                              device=dev))
+                if opts == "optimal":
+                    kw.update(optimal=True,
+                              read_noise_e=obs.tables.readout_consts[0])
+                rv, wall = _synced(lambda: red.reduce_visit(
+                    reads.to(dev), obs.tables.gain.to(dev), mid.to(dev),
+                    tree_map(lambda x: x.to(dev), orbit), **kw))
+                curves[opts, where] = rv
+                if where == "cuda":
+                    print(f"timing [{card}]: reduce_visit ({opts}) {n} "
+                          f"exposures of {cfg.subarray}^2 x {reads.shape[1]} "
+                          f"reads "
+                          f"{wall:.3f} s")
+            a, b = curves[opts, "cuda"], curves[opts, "cpu"]
+            dw = float((a.white_lc.cpu() - b.white_lc).abs().max())
+            dc = float((a.channel_lc.cpu() - b.channel_lc).abs().max())
+            ds = float((a.x_shifts.cpu() - b.x_shifts).abs().max())
+            check(dw <= 5e-6 and dc <= 5e-6 and ds <= 1e-4
+                  and bool(torch.isfinite(a.channel_lc).all()),
+                  f"reduce_visit ({opts}, good_diffs, quad_map) "
+                  f"card = CPU: white {dw:.3g}, channels {dc:.3g} (bar "
+                  f"5e-6), x_shifts {ds:.3g} px (bar 1e-4)")
+        a = curves["box", "cuda"]
+        del curves, reads, dqs
+        out, wall = _synced(lambda: red.divide_white_fit_depths(
+            a.white_lc, a.channel_lc, mid, orbit, ld, 0.155,
+            return_components=True))
+        check(all(bool(torch.isfinite(o).all()) for o in out)
+              and tuple(out[0].shape) == (RECOVER_CHAN,),
+              f"divide_white_fit_depths on the card's curves: rp "
+              f"{[round(v, 4) for v in out[0].tolist()]}, constrained "
+              f"{red.constrained_mask(out[0], out[1]).tolist()} (the first "
+              f"orbit holds no transit) in {wall * 1e3:.1f} ms [{card}]")
+        del obs
+
+    # (c) run_dataset --recover on the whole headline visit
+    def cli(out: str, recover: bool) -> int:
+        return run_dataset.main(
+            ["-p", HEADLINE, "-o", out, "--n-mc", str(N_MC), "--chunk-mc",
+             str(CHUNK_MC), "--rp-sigma", "0.002"]
+            + (["--recover", str(RECOVER_CHAN)] if recover else []))
+
+    with tempfile.TemporaryDirectory() as out:
+        ro.exposure_readout.launches = 0
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            (rc, rec_call), recorded = recorded_readout(lambda: first_call(
+                dataset, "spectra_to_depths", lambda: cli(out, True)))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        with open(os.path.join(out, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        n_exp = manifest["n_exp"]
+        check(rc == 0 and b1 == N_MC * math.ceil(n_exp / CHUNK)
+              and manifest["recovered"]
+              and manifest["recover"]["n_chan"] == RECOVER_CHAN,
+              f"phase 9c: run_dataset --recover {RECOVER_CHAN}: {b1} B1 "
+              f"launches ({N_MC} realisations x {n_exp} exposures), "
+              f"manifest recover {manifest['recover']}")
+        print("  " + [ln for ln in said.getvalue().splitlines()
+                      if ln.startswith("recovered labels")][0])
+        data = dataset.load_dataset(out)
+        err = np.abs(data["recovered_rp"] - data["label_rp"][:, None])
+        tol = np.maximum(6.0 * data["recovered_rp_sigma"], 0.01)
+        check(data["recovered_rp"].shape == (N_MC, RECOVER_CHAN)
+              and bool(np.all(err < tol)),
+              f"recovered depths within max(6 sigma, 0.01) of the injected: "
+              f"largest |err| / tol {float((err / tol).max()):.3f}; "
+              f"injected {np.round(data['label_rp'], 4).tolist()}, "
+              f"recovered channel means "
+              f"{np.round(data['recovered_rp'].mean(1), 4).tolist()}, "
+              f"median sigma "
+              f"{float(np.median(data['recovered_rp_sigma'])):.4g}")
+        cpu = {k: tree_map(lambda x: x.cpu(), v) if k == "orbit" else
+               (v.cpu() if isinstance(v, torch.Tensor) else v)
+               for k, v in rec_call.items() if k != "spectra_e"}
+        for c, name in enumerate(manifest["chunks"]):
+            with np.load(os.path.join(out, name)) as z:
+                got = {k: z[k] for k in z.files}
+            want = [w.numpy() for w in red.spectra_to_depths(
+                torch.from_numpy(got["spectra_e"]), **cpu)]
+            d_rp = float(np.abs(got["recovered_rp"] - want[0]).max())
+            d_sig = max(float(np.max(np.abs(got[k] - w) / np.abs(w)))
+                        for k, w in zip(("recovered_rp_sigma",
+                                         "recovered_rp_sigma_rel",
+                                         "recovered_rp_sigma_common"),
+                                        want[1:]))
+            check(d_rp <= 1e-5 and d_sig <= 1e-3 and np.array_equal(
+                got["recovered_constrained"],
+                red.constrained_mask(want[0], want[1])),
+                  f"{name}: the card's recovered labels = a CPU "
+                  f"spectra_to_depths of the stored spectra: rp "
+                  f"{d_rp:.3g} (bar 1e-5), sigmas {d_sig:.3g} relative "
+                  f"(bar 1e-3), constrained flags identical")
+    hold_recorded(ro, recorded, "phase 9c", "first ensemble batch")
+    del recorded
+
+    sp = rec_call["spectra_e"]
+    args = {k: v for k, v in rec_call.items() if k != "spectra_e"}
+    # the torch operators dispatched are counted too
+    def operators(fn) -> int:
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        class Count(TorchDispatchMode):
+            n = 0
+
+            def __torch_dispatch__(self, func, types, a=(), kw=None):
+                Count.n += 1
+                return func(*a, **(kw or {}))
+
+        with Count():
+            fn()
+        return Count.n
+
+    counts, kept, ops = {}, {}, {}
+    for k in (4, RECOVER_CHAN):
+        call = lambda: red.spectra_to_depths(sp, **dict(args, n_chan=k))
+        counts[k], kept[k] = kernels_in(call, records=True)
+        ops[k] = operators(call)
+    check(counts[4] == counts[RECOVER_CHAN] and ops[4] == ops[RECOVER_CHAN]
+          and all(kept[k] <= counts[k] for k in counts),
+          f"spectra_to_depths launches {counts[4]} kernels ({ops[4]} torch "
+          f"operators) at 4 channels and {counts[RECOVER_CHAN]} "
+          f"({ops[RECOVER_CHAN]}) at {RECOVER_CHAN}; the traces kept "
+          f"{kept[4]} and {kept[RECOVER_CHAN]} kernel records")
+    ms = cuda_ms(lambda: red.spectra_to_depths(sp, **args), reps=3,
+                 warmup=1)
+    print(f"timing [{card}]: spectra_to_depths {ms:.2f} ms and "
+          f"{counts[RECOVER_CHAN]} kernels per chunk ({tuple(sp.shape)}, "
+          f"{RECOVER_CHAN} channels)")
+
+    # the dataset's rate with and without --recover, in turns
+    real, spent = dataset.generate_dataset, {}
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        result = real(*a, **kw)
+        spent.setdefault(kw.get("recover") is not None, []).append(
+            time.perf_counter() - t0)
+        return result
+
+    dataset.generate_dataset = timed
+    try:
+        for recover in (False, True, True, False):
+            with tempfile.TemporaryDirectory() as out, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                cli(out, recover)
+    finally:
+        dataset.generate_dataset = real
+    n = N_MC * n_exp
+    for recover in (False, True):
+        rates = ", ".join(f"{n / w:.2f}" for w in spent[recover])
+        print(f"timing [{card}]: run_dataset {N_MC} visits x {n_exp} "
+              f"exposures {'with' if recover else 'without'} --recover "
+              f"{RECOVER_CHAN}: {rates} exposures/s (generate_dataset)")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "wayne_tpu_torch")):
         print("chip_smoke.py: the wayne_tpu_torch package is not beside "
@@ -1772,6 +2094,7 @@ def main() -> int:
     phase_writer(full, card)
     del full
     launches += phase_compat(card)
+    launches += phase_reduction(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

@@ -10,6 +10,7 @@ JAX is not installed (the repo's conftest imports JAX, hence
 
 import dataclasses
 import os
+import re
 
 import numpy as np
 import pytest
@@ -618,3 +619,133 @@ def test_write_ima_raises_when_the_native_library_cannot_load(
     with pytest.raises(native.NativeWriterError, match="g\\+\\+"):
         write_ima(str(path), reads, np.arange(3.0), hdr)
     assert not path.exists()
+
+
+# --- the closed reduction loop (no kernel of its own) ----------------------
+
+# a tiny transit visit: 3 orbits of 6 exposures, the second orbit in the
+# transit of a 0.81-day orbit, the spectrum on the 128^2 frame
+LOOP = dict(TINY, num_orbits=3, exposures_per_orbit=6,
+            noise={"preset": "all", "bias_drift": True},
+            planet={"period": 0.813475, "t0": 56000.07, "sma_over_rs": 4.855,
+                    "inclination": 82.1, "rp_over_rs": 0.155},
+            start_mjd=56000.0)
+
+
+def _loop_visit(tmp_path):
+    import yaml
+    yml = tmp_path / "loop.yml"
+    yml.write_text(yaml.safe_dump(LOOP))
+    obs = Observation(config_from_dict(LOOP), device="cuda")
+    paths = obs.generate(str(tmp_path / "visit"), chunk=4,
+                         progress=lambda s: None)
+    return str(yml), obs, paths
+
+
+@pytest.mark.cuda
+def test_calwf3_and_reduce_visit_on_the_card_match_cpu(card, tmp_path):
+    """run_calwf3 on the card against --cpu on the same ima files (SCI and
+    ERR rtol 1e-5, atol 1e-3 e-/s; DQ, SAMP and TIME exact), then
+    reduce_visit of the files' reads (up-the-ramp, DQ repair, amplifier
+    offsets; box and optimal) on the card and on the CPU: light curves
+    atol 5e-6. ``align`` is not held card against CPU: its centroid
+    regressor turns a 1e-7 relative change of the spectra (the two
+    devices' sum orders) into up to 1.4e-4 of the channel curves on this
+    visit (measured on the CPU by perturbing the reads); that sensitivity
+    is the reference algorithm's."""
+    from wayne_tpu_torch import reduction as red
+    from wayne_tpu_torch.calibration import quadrant_map
+    from wayne_tpu_torch.io.fits import read_fits
+    from wayne_tpu_torch.pytree import tree_map
+    from wayne_tpu_torch.run_calwf3 import main as run_calwf3
+
+    yml, obs, paths = _loop_visit(tmp_path)
+    outs = {}
+    for where, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        outs[where] = str(tmp_path / where)
+        assert run_calwf3(["-d", str(tmp_path / "visit"), "-p", yml,
+                           "-o", outs[where]] + extra) == 0
+    for name in sorted(os.listdir(outs["cpu"])):
+        a, b = ({h.get("EXTNAME"): d for h, d in read_fits(
+            os.path.join(outs[w], name))[1:]} for w in ("cuda", "cpu"))
+        for ext in ("SCI", "ERR"):
+            np.testing.assert_allclose(a[ext], b[ext], rtol=1e-5, atol=1e-3)
+        for ext in ("DQ", "SAMP", "TIME"):
+            np.testing.assert_array_equal(a[ext], b[ext])
+
+    reads, dqs = zip(*[read_ima(p, with_dq=True)[1::2] for p in paths])
+    reads = torch.from_numpy(np.stack(reads).astype(np.float32))
+    dqs = torch.from_numpy(np.stack(dqs))
+    sc = obs.scenes
+    mid = sc.exp_start_s + float(obs.tables.read_times[-1]) / 2.0
+    orbit = tree_map(lambda x: x[0], sc.orbit)
+    assert 0 < int(red.out_of_transit_mask(mid, orbit).sum()) < len(paths)
+    for optimal in (False, True):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            got[dev] = red.reduce_visit(
+                reads.to(dev), obs.tables.gain.to(dev), mid.to(dev),
+                tree_map(lambda x: x.to(dev), orbit), y_window=(30, 80),
+                x_window=(60, 128), bg_rows=(96, 128), n_chan=4,
+                read_times=obs.tables.read_times.to(dev),
+                good_diffs=red.good_diff_masks_from_dq(dqs.to(dev)),
+                optimal=optimal, quad_map=quadrant_map(128, device=dev))
+        for field in ("white_lc", "channel_lc"):
+            torch.testing.assert_close(getattr(got["cuda"], field).cpu(),
+                                       getattr(got["cpu"], field), rtol=0,
+                                       atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_recovered_labels_on_the_card_match_cpu(card, tmp_path):
+    """generate_dataset(recover=...) on the card: its stored labels = a CPU
+    spectra_to_depths of its stored spectra (rp atol 1e-5, sigmas rtol
+    1e-3, the flags exact), and one spectra_to_depths on the card launches
+    as many kernels at 2 channels as at 6."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from wayne_tpu_torch import reduction as red
+    from wayne_tpu_torch.parallel.dataset import (
+        generate_dataset, load_dataset,
+    )
+    from wayne_tpu_torch.pytree import tree_map
+
+    obs = Observation(config_from_dict(LOOP), device="cuda")
+    sc = obs.scenes
+    kw = dict(x_window=(60, 128), n_chan=4, subtract_bg=True,
+              sigma_components=True)
+    rec = dict(kw, exp_mid_s=sc.exp_start_s + float(
+        obs.tables.read_times[-1]) / 2.0,
+               orbit=tree_map(lambda x: x[0], sc.orbit), ld=sc.ld[0],
+               rp0=0.155)
+    generate_dataset(sc, obs.tables, obs.static, str(tmp_path), n_mc=4,
+                     chunk_mc=2, device="cuda", recover=rec)
+    data = load_dataset(str(tmp_path))
+    want = red.spectra_to_depths(
+        torch.from_numpy(data["spectra_e"]), rec["exp_mid_s"].cpu(),
+        tree_map(lambda x: x.cpu(), rec["orbit"]), rec["ld"].cpu(), 0.155,
+        **kw)
+    np.testing.assert_allclose(data["recovered_rp"], want[0].numpy(),
+                               rtol=0, atol=1e-5)
+    for key, w in zip(("recovered_rp_sigma", "recovered_rp_sigma_rel",
+                       "recovered_rp_sigma_common"), want[1:]):
+        np.testing.assert_allclose(data[key], w.numpy(), rtol=1e-3)
+    np.testing.assert_array_equal(data["recovered_constrained"],
+                                  red.constrained_mask(want[0], want[1]))
+
+    # the host's launch calls: CUPTI drops a few kernel records in a
+    # trace of ~16 000 kernels, never a launch call
+    sp = torch.from_numpy(data["spectra_e"][:2]).cuda()
+    args = (sp, rec["exp_mid_s"], rec["orbit"], rec["ld"], 0.155)
+    counts = []
+    for n_chan in (2, 6):
+        red.spectra_to_depths(*args, **dict(kw, n_chan=n_chan))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            red.spectra_to_depths(*args, **dict(kw, n_chan=n_chan))
+            torch.cuda.synchronize()
+        counts.append(sum(
+            1 for e in prof.profiler.kineto_results.events()
+            if re.match(r"cu(da)?Launch\w*Kernel", e.name())))
+    assert counts[0] == counts[1] > 0, counts

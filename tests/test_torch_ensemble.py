@@ -322,8 +322,19 @@ def test_generate_dataset_refuses_a_directory_the_jax_package_wrote(tmp_path):
 
 
 def test_generate_dataset_recover_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A8"):
-        _generate(tmp_path, recover={"n_chan": 4})
+    """recover= is ported (tests/test_torch_recover.py); what still raises
+    is turning it on over chunks written without it, and n_chan < 1, as in
+    the JAX package."""
+    visit = _visit_t()
+    recover = {"exp_mid_s": np.zeros(4, np.float32),
+               "orbit": tree_map(lambda x: x[0], visit.orbit),
+               "ld": visit.ld[0], "rp0": 0.15, "x_window": (10, 50),
+               "n_chan": 2}
+    _generate(tmp_path)
+    with pytest.raises(ValueError, match="resume mismatch"):
+        _generate(tmp_path, recover=recover)
+    with pytest.raises(ValueError, match="n_chan"):
+        _generate(tmp_path / "zero", recover=dict(recover, n_chan=0))
 
 
 def test_torch_adapter_over_the_ports_dataset(tmp_path):
@@ -391,8 +402,8 @@ def test_run_dataset_unported_flags_raise(tmp_path):
     yml.write_text(TINY_YAML)
     argv = ["-p", str(yml), "-o", str(tmp_path / "ds"), "--n-mc", "2",
             "--chunk-mc", "2", "--cpu"]
-    with pytest.raises(NotImplementedError, match="Queue A8"):
-        run_dataset(argv + ["--recover", "4"])
+    with pytest.raises(SystemExit):            # --recover is ported; 0
+        run_dataset(argv + ["--recover", "0"])  # channels is refused
     with pytest.raises(SystemExit):            # no eclipse in the visit
         run_dataset(argv + ["--fp-sigma", "1e-4"])
 

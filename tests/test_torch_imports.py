@@ -46,7 +46,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.ops.persistence",
                      "wayne_tpu_torch.ops.recte",
                      "wayne_tpu_torch.program",
-                     "wayne_tpu_torch.run_program"):
+                     "wayne_tpu_torch.run_program",
+                     "wayne_tpu_torch.calwf3",
+                     "wayne_tpu_torch.run_calwf3"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -89,6 +91,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         generate_dataset(None, None, None, str(tmp_path / "ds"), n_mc=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         Program(cfg)
+    from wayne_tpu_torch.run_calwf3 import main as run_calwf3
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_calwf3(["-d", str(tmp_path), "-p", str(yml)])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_program(["-p", str(yml), "-o", str(tmp_path / "prog")])
     from wayne_tpu_torch.compat import ExposureGenerator, run

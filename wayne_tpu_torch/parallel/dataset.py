@@ -32,6 +32,7 @@ from wayne_tpu_torch.parallel.ensemble import (
     mc_scenes, simulate_ensemble_spectra,
 )
 from wayne_tpu_torch.pytree import tree_map
+from wayne_tpu_torch.reduction import constrained_mask, spectra_to_depths
 from wayne_tpu_torch.scene import Scene
 
 # The manifest's "keys" entry: whose seed derivation made the chunks. A
@@ -47,12 +48,16 @@ def _numpy(x) -> np.ndarray:
 
 
 def _leaves(tree) -> list[np.ndarray]:
-    """The array leaves of nested lists and dicts (by sorted key), in the
-    order ``jax.tree_util.tree_leaves`` walks them."""
-    if isinstance(tree, list):
+    """The array leaves of nested lists, tuples, dicts (by sorted key) and
+    dataclasses (in field order), in the order
+    ``jax.tree_util.tree_leaves`` walks them."""
+    if isinstance(tree, (list, tuple)):
         return [a for t in tree for a in _leaves(t)]
     if isinstance(tree, dict):
         return [a for k in sorted(tree) for a in _leaves(tree[k])]
+    if dataclasses.is_dataclass(tree):
+        return [a for f in dataclasses.fields(tree)
+                for a in _leaves(getattr(tree, f.name))]
     return [_numpy(tree)]
 
 
@@ -151,19 +156,26 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
     one; ``"cpu"`` runs the plain PyTorch path. The scenes and tables are
     moved there. ``chunk``: exposures per readout launch.
 
-    ``recover`` (recovered depth labels) needs the reduction pipeline,
-    ROADMAP Queue A8, and raises NotImplementedError.
+    ``recover`` attaches RECOVERED depth labels: each chunk's spectra are
+    also reduced on the device (reduction.spectra_to_depths, every
+    realisation of the chunk in one call) and stored as ``recovered_rp``
+    and ``recovered_rp_sigma`` (chunk_mc, n_chan), the sigma split
+    ``recovered_rp_sigma_rel`` (chunk_mc, n_chan) and
+    ``recovered_rp_sigma_common`` (chunk_mc,) (Cov = diag(rel^2) +
+    common^2 ones), and ``recovered_constrained`` (chunk_mc, n_chan)
+    (reduction.constrained_mask). Required keys: ``exp_mid_s`` (n_exp,),
+    ``orbit`` (OrbitParams), ``ld`` (4,), ``rp0``, ``x_window`` (lo, hi).
+    Optional: ``n_chan`` (8), ``divide_white`` (True), ``subtract_bg``
+    (True: the ensemble's spectra are full-frame column sums, so the sky
+    must go before the fit), ``scan_dir`` (n_exp,) reverse-scan mask.
     """
-    if recover is not None:
-        raise NotImplementedError(
-            "generate_dataset(recover=...) is not ported to wayne_tpu_torch "
-            "yet: spectra_to_depths and constrained_mask come with the "
-            "reduction pipeline (ROADMAP Queue A8)")
     dev = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
     say = progress or (lambda s: None)
     if n_mc % chunk_mc != 0:
         raise ValueError("n_mc must be a multiple of chunk_mc")
+    if recover is not None and int(recover.get("n_chan", 8)) < 1:
+        raise ValueError("recover n_chan must be >= 1")
     if labels:
         for k, v in labels.items():
             if len(_numpy(v)) != n_mc:
@@ -177,8 +189,26 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
 
     # Resume safety: skipped chunks and the settings that shaped them must
     # match this run, or the concatenated dataset silently mixes
-    # incompatible rows.
+    # incompatible rows. recover's arrays (mid-times, orbit, limb
+    # darkening) are compared by content.
+    recover_desc = None
+    if recover is not None:
+        recover_desc = {
+            "n_chan": int(recover.get("n_chan", 8)),
+            "x_window": [int(x) for x in recover["x_window"]],
+            "rp0": float(recover["rp0"]),
+            "divide_white": bool(recover.get("divide_white", True)),
+            "subtract_bg": bool(recover.get("subtract_bg", True)),
+            "scan_dir": recover.get("scan_dir") is not None,
+            "inputs_sha": _fingerprint((recover["exp_mid_s"],
+                                        recover["orbit"], recover["ld"])),
+        }
     expected_keys = {"spectra_e"}
+    if recover is not None:
+        expected_keys |= {"recovered_rp", "recovered_rp_sigma",
+                          "recovered_rp_sigma_rel",
+                          "recovered_rp_sigma_common",
+                          "recovered_constrained"}
     if labels:
         expected_keys |= {f"label_{k}" for k in labels}
     manifest_path = os.path.join(outdir, "manifest.json")
@@ -188,7 +218,7 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
         checks = {"chunk_mc": chunk_mc, "seed": seed, "dq_aware": dq_aware,
                   "n_exp": n_exp, "subarray": cfg.subarray,
                   "labels": sorted(labels) if labels else [],
-                  "recover": None,
+                  "recover": recover_desc,
                   # spectra convention: NLINCORR-linearized electrons vs
                   # raw DN sums
                   "nlincorr": bool(cfg.noise.non_linearity),
@@ -223,24 +253,51 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
 
     written = []
 
+    def on_device(x):
+        return torch.as_tensor(_numpy(x) if not isinstance(x, torch.Tensor)
+                               else x, device=dev)
+
+    if recover is not None:
+        scan_dir = recover.get("scan_dir")
+        rec_args = (on_device(recover["exp_mid_s"]).to(torch.float32),
+                    tree_map(on_device, recover["orbit"]),
+                    on_device(recover["ld"]).to(torch.float32))
+        rec_kw = dict(
+            x_window=tuple(int(x) for x in recover["x_window"]),
+            n_chan=int(recover.get("n_chan", 8)),
+            divide_white=bool(recover.get("divide_white", True)),
+            subtract_bg=bool(recover.get("subtract_bg", True)),
+            scan_dir=None if scan_dir is None else on_device(scan_dir),
+            sigma_components=True)
+
     # Two stages: while the device computes chunk i+1, the host writes
-    # chunk i, whose spectra were copied to pinned memory without blocking.
-    def fetch(spectra: torch.Tensor):
-        if spectra.device.type != "cuda":
-            return spectra, None
-        host = torch.empty(spectra.shape, dtype=spectra.dtype,
-                           pin_memory=True)
-        host.copy_(spectra, non_blocking=True)
+    # chunk i, whose arrays were copied to pinned memory without blocking.
+    def fetch(arrays: list[torch.Tensor]):
+        if arrays[0].device.type != "cuda":
+            return arrays, None
+        hosts = []
+        for a in arrays:
+            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+            host.copy_(a, non_blocking=True)
+            hosts.append(host)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return hosts, done
 
     def flush(pending) -> None:
-        path, (host, done), c0 = pending
+        path, (hosts, done), c0 = pending
         if done is not None:
             done.synchronize()
-        spectra = host.numpy()
+        spectra = hosts[0].numpy()
         payload = {"spectra_e": spectra}
+        if recover is not None:
+            rp, sig, sig_rel, sig_common = (h.numpy() for h in hosts[1:])
+            payload["recovered_rp"] = rp
+            payload["recovered_rp_sigma"] = sig
+            payload["recovered_rp_sigma_rel"] = sig_rel
+            payload["recovered_rp_sigma_common"] = np.broadcast_to(
+                sig_common, (rp.shape[0],)).copy()
+            payload["recovered_constrained"] = constrained_mask(rp, sig)
         if labels:
             for k, v in labels.items():
                 payload[f"label_{k}"] = _numpy(v)[c0: c0 + chunk_mc]
@@ -281,7 +338,12 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
                            mc_offset=c0)
         spectra = simulate_ensemble_spectra(ens, tables, cfg,
                                             dq_aware=dq_aware, chunk=chunk)
-        fetched = fetch(spectra)
+        arrays = [spectra]
+        if recover is not None:
+            arrays += list(spectra_to_depths(spectra, *rec_args,
+                                             float(recover["rp0"]),
+                                             **rec_kw))
+        fetched = fetch(arrays)
         if pending is not None:
             flush(pending)
         pending = (path, fetched, c0)
@@ -294,8 +356,8 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
         "labels": sorted(labels) if labels else [],
         "chunk_inputs_sha": _chunk_input_fingerprints(n_mc, chunk_mc,
                                                       overrides, labels),
-        "recovered": False,
-        "recover": None,
+        "recovered": recover is not None,
+        "recover": recover_desc,
         "nlincorr": bool(cfg.noise.non_linearity),
         "keys": KEYS,
         "chunks": written,

@@ -1,32 +1,190 @@
-"""On-device reduction of simulated reads (port of the part of the JAX
-package's ``reduction`` that the Monte-Carlo dataset path runs).
+"""Reduction pipeline in PyTorch (port of the JAX package's ``reduction``):
+raw reads -> extracted light curves -> fitted depths, on the device.
 
-Plain tensor functions with the JAX package's names and semantics:
+Plain tensor functions with the JAX package's names and semantics. Where
+the JAX package maps one exposure (or one realisation) with ``jax.vmap``,
+the functions here take a leading batch axis instead:
 
-  * :func:`linearize_reads` — calwf3 NLINCORR, the per-pixel cubic
-    non-linearity inverted before any flux estimator;
-  * :func:`ramp_slope_frame` — the up-the-ramp least-squares slope;
-  * :func:`cr_bad_diff_masks` and :func:`repair_read_stack` — the dense
-    per-interval cosmic-ray repair of a read stack;
-  * :func:`extract_spectra_cr` (through :func:`_cr_hit_deltas`) — column
-    spectra with the simulator's cosmic-ray hits repaired in column space.
+  * extraction: :func:`linearize_reads` (calwf3 NLINCORR),
+    :func:`ramp_slope_frame`, the cosmic-ray masks and repairs
+    (:func:`cr_bad_diff_masks`, :func:`good_diff_masks_from_dq`,
+    :func:`repair_read_stack`, :func:`repair_read_stack_sparse`),
+    :func:`extract_spectra_cr` (reads (B, NR, S, S), hit lists
+    (B, NSAMP, 2, MAX_CR)), :func:`ref_pixel_correct`, :func:`net_frame`,
+    :func:`extract_exposure`, :func:`spatial_profile`,
+    :func:`optimal_extract`;
+  * baselines and drifts: :func:`out_of_transit_mask`,
+    :func:`scan_direction_factor`, :func:`amp_offset_correct`, the drift
+    helpers (:func:`spectral_shifts` ... :func:`shift_detrend`);
+  * :func:`reduce_visit` (reads (n_exp, NR, S, S));
+  * depths: :func:`fit_depths` (Newton steps on the transit model's chi^2
+    with autograd; every channel and realisation in one tensor program),
+    :func:`common_mode_correct`, :func:`divide_white_fit_depths`,
+    :func:`spectra_to_depths` (spectra (mc, n_exp, S)) and
+    :func:`constrained_mask`.
 
-Where the JAX package maps one exposure with ``jax.vmap``, the hit-list
-functions here take a leading exposure axis B: reads (B, NR, S, S), hit
-lists (B, NSAMP, 2, MAX_CR), counts (B, NSAMP). Nothing waits for the
-host: the hit budget comes from static shapes, and the per-hit sums are
-pairwise masks, not scatters, so the card gives the same answer on every
-run.
+Nothing waits for the host: budgets come from static shapes, linear
+solves use ``solve_ex`` (no error check), and the per-hit sums of the
+ensemble path are pairwise masks, not scatters. Medians average the two
+middle values of an even count, as ``jnp.median`` does (:func:`_median`),
+not the lower one as ``torch.median``.
 
-The rest of the JAX package's ``reduction`` (``reduce_visit``, the depth
-fits, ``spectra_to_depths``, the reference-pixel and amplifier
-corrections) comes with ROADMAP Queue A8.
+The white-light systematics fits (``fit_white_ramp``, ``fit_white_recte``,
+``fit_eclipse_depths``, ``fit_phase_curve``, ``fit_sky_model``) and
+``run_reduce`` come with ROADMAP Queue A item 8b.
 """
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
 import numpy as np
 import torch
+
+from wayne_tpu_torch.calibration import quadrant_map
+from wayne_tpu_torch.ops.kepler import OrbitParams, projected_separation
+from wayne_tpu_torch.ops.transit import transit_depth_curve
+
+# DQ bits the repair consumes (io.ima conventions): cosmic ray (8192),
+# saturation (256), and the static classes (hot 16, dead 4, IR blob 512,
+# unstable 32), whose every interval is bad. Reference pixels (128) are
+# not repaired; ref_pixel_correct reads them as the per-read bias monitor.
+DQ_COSMIC_RAY, DQ_SATURATED, DQ_HOT_PIXEL = 8192, 256, 16
+DQ_REF_PIXEL = 128
+DQ_DEAD, DQ_BLOB, DQ_UNSTABLE = 4, 512, 32
+DQ_STATIC_BAD = DQ_HOT_PIXEL | DQ_DEAD | DQ_BLOB | DQ_UNSTABLE
+DQ_BAD_BITS = DQ_COSMIC_RAY | DQ_SATURATED | DQ_STATIC_BAD
+
+
+def _median(x: torch.Tensor, dim: int, nan: bool = False) -> torch.Tensor:
+    """Median over ``dim`` as ``jnp.median`` (``nan=False``: any NaN gives
+    NaN) or ``jnp.nanmedian`` (``nan=True``: NaNs skipped, all-NaN gives
+    NaN) compute it: the two middle values of an even count averaged,
+    ``(lo + hi) * 0.5``. ``torch.median`` returns the lower one."""
+    s, _ = torch.sort(x, dim=dim)               # NaNs sort to the end
+    if nan:
+        n = (~torch.isnan(s)).sum(dim=dim, keepdim=True)
+    else:
+        n = torch.full_like(s.narrow(dim, 0, 1), s.shape[dim],
+                            dtype=torch.long)
+    lo = torch.clamp_min(torch.div(n - 1, 2, rounding_mode="floor"), 0)
+    hi = torch.clamp_min(torch.div(n, 2, rounding_mode="floor"), 0)
+    hi = torch.where(n > 0, hi, lo)
+    out = (torch.gather(s, dim, lo) + torch.gather(s, dim, hi)) * 0.5
+    if not nan:
+        out = torch.where(torch.isnan(x).any(dim=dim, keepdim=True),
+                          math.nan, out)
+    return out.squeeze(dim)
+
+
+_SCAN_BLOCK = 16
+
+
+def prefix_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Float32 prefix sum along ``dim`` in XLA's order: sequential within
+    blocks of 16, the block totals scanned the same way and added on.
+    ``jnp.cumsum`` rounds so on the CPU (its long reduce_window becomes
+    this blocked scan), while ``torch.cumsum`` accumulates in double on
+    the CPU and in another float order on the card. The same elementwise
+    adds on either device, so the card rounds as the CPU does."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= _SCAN_BLOCK:
+        out = [x[..., 0]]
+        for k in range(1, n):
+            out.append(out[-1] + x[..., k])
+        return torch.stack(out, dim=-1).movedim(-1, dim)
+    m = -(-n // _SCAN_BLOCK)
+    xp = torch.nn.functional.pad(x, (0, m * _SCAN_BLOCK - n))
+    inner = prefix_sum(xp.reshape(*x.shape[:-1], m, _SCAN_BLOCK))
+    outer = prefix_sum(inner[..., -1])                        # (..., m)
+    excl = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]],
+                     dim=-1)
+    out = (inner + excl[..., None]).reshape(*x.shape[:-1], m * _SCAN_BLOCK)
+    return out[..., :n].movedim(-1, dim)
+
+
+def _channel_edges(x_window: tuple[int, int], n_chan: int) -> np.ndarray:
+    """Integer channel edges over [x_lo, x_hi): a float64 NumPy linspace
+    truncated to int, the JAX package's recipe, so that every package and
+    the CLI place each interior edge on the same column. Zero-width
+    channels would give 0/0 light curves, so they are refused."""
+    lo, hi = int(x_window[0]), int(x_window[1])
+    if n_chan > hi - lo:
+        raise ValueError(
+            f"n_chan={n_chan} exceeds the {hi - lo}-column window "
+            f"{x_window}: zero-width channels would produce NaN curves")
+    return np.linspace(lo, hi, n_chan + 1).astype(np.int64)
+
+
+@dataclass
+class ReducedVisit:
+    """Outputs of :func:`reduce_visit`."""
+
+    spectra_e: torch.Tensor      # (n_exp, S) net electrons per column
+    white_lc: torch.Tensor       # (n_exp,) normalised white light curve
+    channel_lc: torch.Tensor     # (n_exp, n_chan) normalised channel curves
+    channel_cols: torch.Tensor   # (n_chan, 2) int32 [lo, hi) column ranges
+    x_shifts: torch.Tensor       # (n_exp,) fitted dispersion-direction
+    #                              drifts in px (zeros unless align=True)
+
+
+def good_diff_masks_from_dq(dq: torch.Tensor) -> torch.Tensor:
+    """Per-interval good-difference masks from ima DQ planes.
+
+    A cosmic ray (8192, cumulative from the hit read on) corrupts only the
+    interval where the flag appears; saturation (256) any interval that
+    touches a saturated read; the static classes (hot, dead, blob,
+    unstable) every interval.
+
+    Args:
+      dq: (..., NR, S, S) int DQ planes in time order (read_ima).
+    Returns (..., NR-1, S, S) bool, True where the difference is usable.
+    """
+    a, b = dq[..., :-1, :, :], dq[..., 1:, :, :]
+    cr_bad = ((a & DQ_COSMIC_RAY) != 0) ^ ((b & DQ_COSMIC_RAY) != 0)
+    sat_bad = ((a | b) & DQ_SATURATED) != 0
+    static_bad = ((a | b) & DQ_STATIC_BAD) != 0
+    return ~(cr_bad | sat_bad | static_bad)
+
+
+def ref_pixel_correct(reads: torch.Tensor, ref_mask: torch.Tensor,
+                      corner: tuple[float, float] | None = None,
+                      clip_sigma: float = 5.0):
+    """Per-read, per-amplifier reference-pixel bias correction (calwf3
+    BLEVCORR): each read's per-quadrant mean reference level, relative to
+    read 0, after one clip of the reference pixels more than
+    ``clip_sigma`` from their quadrant mean, is subtracted from that
+    quadrant. A quadrant without reference pixels is left as it is.
+
+    Args:
+      reads: (..., NR, S, S) read stack (DN or e-).
+      ref_mask: (S, S) truthy on the blind reference pixels (DQ 128).
+      corner: (x0, y0) of the frame in the 1024^2 full frame; None =
+        centered.
+
+    Returns (corrected (..., NR, S, S), offsets (..., NR, 4)), offsets[0]
+    = 0. The contractions run in fp32 with TF32 off (the package sets it).
+    """
+    reads = reads.to(torch.float32)
+    S = reads.shape[-1]
+    quad = quadrant_map(S, corner, device=reads.device)         # (S, S)
+    w = (ref_mask > 0).to(torch.float32)[None, :, :] \
+        * (quad[None] == torch.arange(4, device=reads.device
+                                      )[:, None, None])         # (4, S, S)
+    counts = torch.clamp_min(w.sum(dim=(1, 2)), 1.0)            # (4,)
+    mean = torch.einsum("...kij,qij->...kq", reads, w) / counts  # (NR, 4)
+    resid = reads - mean[..., quad]
+    var = torch.einsum("...kij,qij->...kq", resid * resid, w) / counts
+    good = (torch.abs(resid)
+            <= clip_sigma * torch.sqrt(var)[..., quad] + 1e-6)
+    wk = w * good[..., None, :, :].to(torch.float32)            # (NR,4,S,S)
+    counts_k = torch.clamp_min(wk.sum(dim=(-2, -1)), 1.0)
+    mean = torch.einsum("...kij,...kqij->...kq", reads, wk) / counts_k
+    has_ref = (w.sum(dim=(1, 2)) > 0).to(torch.float32)         # (4,)
+    offsets = (mean - mean[..., :1, :]) * has_ref
+    return reads - offsets[..., quad], offsets
 
 
 def cr_bad_diff_masks(cr_pos: torch.Tensor, cr_count: torch.Tensor,
@@ -126,9 +284,13 @@ def repair_read_stack(reads_dn: torch.Tensor,
     est = torch.where(have_x, est_x, torch.where(have_y, est_y, 0.0))
 
     # shape from the neighbours, amplitude from the pixel's own clean ramp
+    # the sums over the read axis (at most 15 terms) run in read order, as
+    # elementwise adds: the card rounds as the CPU does, which matters
+    # where the ratio below divides two near-cancelling sums (a cosmic ray
+    # in the interval a scan lights the pixel)
     goodf = good.to(diffs.dtype)
-    own_sum = torch.sum(diffs * goodf, dim=-3, keepdim=True)
-    nb_sum = torch.sum(est * goodf, dim=-3, keepdim=True)
+    own_sum = prefix_sum(diffs * goodf, dim=-3)[..., -1:, :, :]
+    nb_sum = prefix_sum(est * goodf, dim=-3)[..., -1:, :, :]
     scale = own_sum / torch.where(nb_sum == 0.0, 1.0, nb_sum)
     scale_ok = (torch.abs(nb_sum) > 0.05 * torch.abs(own_sum) + 1e-3) \
         & (scale > 0.0) & (scale < 8.0)
@@ -136,7 +298,7 @@ def repair_read_stack(reads_dn: torch.Tensor,
 
     repaired = torch.where(good, diffs, est)
     first = reads_dn[..., :1, :, :]
-    return torch.cat([first, first + torch.cumsum(repaired, dim=-3)],
+    return torch.cat([first, first + prefix_sum(repaired, dim=-3)],
                      dim=-3)
 
 
@@ -301,3 +463,743 @@ def ramp_slope_frame(reads_dn: torch.Tensor,
     sbar = reads_dn.mean(dim=0)
     slope = torch.tensordot(dt, reads_dn - sbar[None], dims=1) / denom
     return slope * (t[-1] - t[0])
+
+
+def repair_read_stack_sparse(reads_dn: torch.Tensor, cr_pos: torch.Tensor,
+                             cr_count: torch.Tensor) -> torch.Tensor:
+    """The cosmic-ray repair of one exposure at its hit sites only: the
+    dense repair's correction (the neighbour-shape estimate rescaled to
+    the pixel's own clean amplitude) computed per hit, scatter-added per
+    interval and prefix-summed down the ramp. Equal to
+    :func:`repair_read_stack` wherever a hit pixel's column neighbours are
+    clean in every interval.
+
+    Args:
+      reads_dn: (NR, S, S) reads in time order.
+      cr_pos: (nsamp, 2, MAX_CR) hit rows/cols; cr_count: (nsamp,).
+    """
+    nsamp, _, n_cr = cr_pos.shape
+    S = reads_dn.shape[-1]
+    dev, dtype = reads_dn.device, reads_dn.dtype
+    k_idx = torch.arange(nsamp, device=dev).repeat_interleave(n_cr)
+    ys = cr_pos[:, 0, :].reshape(-1).long()
+    xs = cr_pos[:, 1, :].reshape(-1).long()
+    valid = (torch.arange(n_cr, device=dev)[None, :]
+             < cr_count[:, None]).reshape(-1)
+    valid_f = valid.to(dtype)
+
+    # two hits can land on one pixel in one interval: per-site quantities
+    # divide by the multiplicity, so each corrupted site counts once
+    counts = torch.zeros((nsamp, S, S), dtype=dtype, device=dev)
+    counts.index_put_((k_idx, ys, xs), valid_f, accumulate=True)
+    hits = counts > 0
+    mult = torch.clamp_min(counts[k_idx, ys, xs], 1.0)
+
+    def diff_at(y, x):
+        return reads_dn[k_idx + 1, y, x] - reads_dn[k_idx, y, x]
+
+    d_own = diff_at(ys, xs)
+    bad_px = torch.zeros((S, S), dtype=dtype, device=dev)
+    bad_px.index_put_((ys, xs), torch.where(valid, d_own, 0.0) / mult,
+                      accumulate=True)
+    total_clean = (reads_dn[-1] - reads_dn[0]) - bad_px
+
+    xl = torch.clamp_min(xs - 1, 0)
+    xr = torch.clamp_max(xs + 1, S - 1)
+    wl = (xl != xs) & ~hits[k_idx, ys, xl]
+    wr = (xr != xs) & ~hits[k_idx, ys, xr]
+    d_l = diff_at(ys, xl)
+    d_r = diff_at(ys, xr)
+    w = wl.to(dtype) + wr.to(dtype)
+    est = (torch.where(wl, d_l, 0.0) + torch.where(wr, d_r, 0.0)) \
+        / torch.clamp_min(w, 1.0)
+    own_clean = total_clean[ys, xs]
+    nb_clean = (torch.where(wl, total_clean[ys, xl] - d_l, 0.0)
+                + torch.where(wr, total_clean[ys, xr] - d_r, 0.0)) \
+        / torch.clamp_min(w, 1.0)
+    scale = own_clean / torch.where(nb_clean == 0.0, 1.0, nb_clean)
+    scale_ok = (torch.abs(nb_clean) > 0.05 * torch.abs(own_clean) + 1e-3) \
+        & (scale > 0.0) & (scale < 8.0)
+    est = torch.where(scale_ok, est * scale, est)
+    delta = torch.where(valid & (w > 0), est - d_own,
+                        torch.where(valid, -d_own, 0.0)) / mult
+
+    corr = torch.zeros((nsamp, S, S), dtype=dtype, device=dev)
+    corr.index_put_((k_idx, ys, xs), delta, accumulate=True)
+    return torch.cat([reads_dn[:1], reads_dn[1:] + torch.cumsum(corr, 0)])
+
+
+# ---------------------------------------------------------------------------
+# Extraction
+# ---------------------------------------------------------------------------
+
+def net_frame(reads_dn: torch.Tensor, gain,
+              read_times: torch.Tensor | None = None,
+              good_diffs: torch.Tensor | None = None) -> torch.Tensor:
+    """Accumulated-charge frame in electrons from reads (..., NR, S, S):
+    CDS (last minus zeroth read) by default, the up-the-ramp
+    least-squares slope with ``read_times``; ``good_diffs`` (..., NR-1, S,
+    S) bool repairs the flagged intervals first (repair_read_stack)."""
+    if good_diffs is not None:
+        reads_dn = repair_read_stack(reads_dn, good_diffs)
+    if read_times is None:
+        return (reads_dn[..., -1, :, :] - reads_dn[..., 0, :, :]) * gain
+    return ramp_slope_frame(reads_dn.movedim(-3, 0), read_times) * gain
+
+
+def extract_exposure(reads_dn: torch.Tensor, gain,
+                     y_window: tuple[int, int],
+                     bg_rows: tuple[int, int],
+                     read_times: torch.Tensor | None = None,
+                     good_diffs: torch.Tensor | None = None) -> torch.Tensor:
+    """Net electrons per column (..., S): the net frame less its
+    per-column sky (the median of ``bg_rows``), box-summed over
+    ``y_window``."""
+    net = net_frame(reads_dn, gain, read_times, good_diffs)
+    bg = _median(net[..., bg_rows[0]: bg_rows[1], :], -2)
+    net = net - bg[..., None, :]
+    return net[..., y_window[0]: y_window[1], :].sum(dim=-2)
+
+
+def spatial_profile(frame_e: torch.Tensor, y_window: tuple[int, int],
+                    smooth_x: int = 8,
+                    support_frac: float = 0.03) -> torch.Tensor:
+    """Normalised cross-dispersion profile P(y, x) for optimal extraction
+    from a high-S/N background-subtracted frame (S, S): clipped at zero,
+    boxcar-smoothed along the dispersion axis (width 2 smooth_x + 1, edge
+    padded, as differences of a cumulative sum), thresholded at
+    ``support_frac`` of each column's peak and normalised per column over
+    the window rows; a column without signal gets a flat profile."""
+    win = torch.clamp_min(frame_e[y_window[0]: y_window[1], :], 0.0)
+    w_rows = win.shape[0]
+    if smooth_x > 0:
+        k = 2 * smooth_x + 1
+        pad = torch.cat([win[:, :1].expand(-1, smooth_x), win,
+                         win[:, -1:].expand(-1, smooth_x)], dim=1)
+        c = prefix_sum(pad, dim=1)
+        c = torch.cat([torch.zeros_like(c[:, :1]), c], dim=1)
+        win = (c[:, k:] - c[:, :-k]) / k
+    win = torch.where(win > support_frac * torch.amax(win, 0, keepdim=True),
+                      win, 0.0)
+    colsum = torch.sum(win, dim=0, keepdim=True)
+    ok = colsum > 1e-6
+    return torch.where(ok, win / torch.where(ok, colsum, 1.0), 1.0 / w_rows)
+
+
+def optimal_extract(net_e: torch.Tensor, profile: torch.Tensor,
+                    y_window: tuple[int, int], var_floor_e2) -> torch.Tensor:
+    """Horne (1986) profile-weighted extraction of net frames (..., S, S):
+    f(x) = sum_y P D / V / sum_y P^2 / V with the model variance
+    V = max(P f_box, 0) + ``var_floor_e2`` (the estimator's read-noise
+    variance, read_noise_var_e2)."""
+    d = net_e[..., y_window[0]: y_window[1], :]
+    f_box = torch.sum(d, dim=-2, keepdim=True)
+    v = torch.clamp_min(profile * f_box, 0.0) + var_floor_e2
+    num = torch.sum(profile * d / v, dim=-2)
+    den = torch.sum(profile * profile / v, dim=-2)
+    return num / torch.clamp_min(den, 1e-12)
+
+
+def read_noise_var_e2(read_noise_e: float, n_reads: int,
+                      ramp: bool = False) -> float:
+    """Read-noise variance (e-^2) of the accumulated-charge estimators:
+    2 rn^2 for CDS, rn^2 12 (NR-1) / (NR (NR+1)) for the up-the-ramp
+    slope."""
+    if ramp:
+        return float(read_noise_e) ** 2 * 12.0 * (n_reads - 1) \
+            / (n_reads * (n_reads + 1))
+    return 2.0 * float(read_noise_e) ** 2
+
+
+# ---------------------------------------------------------------------------
+# Dispersion-direction drifts
+# ---------------------------------------------------------------------------
+
+def _catmull_rom(f: torch.Tensor, q: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cubic Catmull-Rom sampling of ``f`` (..., n), a unit grid, at
+    positions ``q`` (..., m); ``f``'s leading axes broadcast against
+    ``q``'s. Returns (value, d value / d q), constant with zero slope
+    beyond the grid."""
+    n = f.shape[-1]
+    f = f.expand(*q.shape[:-1], n)
+    i = torch.clamp(torch.floor(q).long(), 0, n - 2)
+    t = q - i.to(q.dtype)
+
+    def at(j):
+        return torch.gather(f, -1, torch.clamp(j, 0, n - 1))
+
+    fm1, f0, f1, f2 = at(i - 1), at(i), at(i + 1), at(i + 2)
+    b = f1 - fm1
+    c = 2.0 * fm1 - 5.0 * f0 + 4.0 * f1 - f2
+    d = -fm1 + 3.0 * f0 - 3.0 * f1 + f2
+    val = 0.5 * (2.0 * f0 + (b + (c + d * t) * t) * t)
+    dval = 0.5 * (b + (2.0 * c + 3.0 * d * t) * t)
+    lo, hi = q < 0.0, q > n - 1.0
+    val = torch.where(lo, f[..., :1], torch.where(hi, f[..., -1:], val))
+    dval = torch.where(lo | hi, 0.0, dval)
+    return val, dval
+
+
+def spectral_shifts(spectra: torch.Tensor, x_window: tuple[int, int],
+                    n_iter: int = 3) -> torch.Tensor:
+    """Per-exposure sub-pixel dispersion-direction drifts (px) of spectra
+    (n_exp, S): Gauss-Newton fits of s_i(x) = a_i ref(x - delta_i) against
+    the visit-mean spectrum, cubic resampling with its analytic
+    derivative, the amplitude profiled out each step, interior columns
+    only (2-px margin). s_i appears shifted redward by delta_i."""
+    x0, x1 = x_window
+    win = spectra[:, x0:x1]                                  # (n_exp, W)
+    w = win.shape[1]
+    xs = torch.arange(w, dtype=spectra.dtype, device=spectra.device)
+    ref = torch.mean(win / torch.mean(win, dim=1, keepdim=True), dim=0)
+    m = ((xs >= 2) & (xs < w - 2)).to(spectra.dtype)[None, :]
+    delta = torch.zeros(win.shape[0], dtype=spectra.dtype,
+                        device=spectra.device)
+    for _ in range(n_iter):
+        r, dr = _catmull_rom(ref, xs[None, :] - delta[:, None])
+        a = torch.sum(win * r * m, dim=1) / torch.clamp_min(
+            torch.sum(r * r * m, dim=1), 1e-12)
+        e = win - a[:, None] * r
+        jac = -a[:, None] * dr
+        num = torch.sum(e * jac * m, dim=1)
+        den = torch.clamp_min(torch.sum(jac * jac * m, dim=1), 1e-12)
+        delta = delta + num / den
+    return delta
+
+
+def align_spectra(spectra: torch.Tensor, shifts: torch.Tensor
+                  ) -> torch.Tensor:
+    """Undo per-exposure drifts: s_i sampled at x + delta_i (cubic).
+    For diagnostics; light curves use shift_detrend."""
+    s = spectra.shape[-1]
+    xs = torch.arange(s, dtype=spectra.dtype, device=spectra.device)
+    return _catmull_rom(spectra, xs[None, :] + shifts[:, None])[0]
+
+
+def drift_binned_flux(spectra: torch.Tensor, shifts: torch.Tensor,
+                      edges: torch.Tensor) -> torch.Tensor:
+    """Channel fluxes (n_exp, len(edges) - 1) with bin edges that follow
+    each exposure's drift: differences of the cumulative column flux,
+    cubic-resampled at edges + delta_i. With zero shifts and integer edges
+    it reproduces the plain partial sums."""
+    cum = torch.cat([torch.zeros_like(spectra[:, :1]),
+                     prefix_sum(spectra, dim=1)], dim=1)     # (n_exp, S+1)
+    q = edges.to(spectra.dtype)[None, :] + shifts[:, None]
+    at = _catmull_rom(cum, q)[0]
+    return at[:, 1:] - at[:, :-1]
+
+
+def dispersion_centroid(spectra: torch.Tensor,
+                        x_window: tuple[int, int]) -> torch.Tensor:
+    """Flux-weighted column centroid over the window (..., ): the drift
+    regressor for shift_detrend. Clean it of the transit first
+    (clean_drift_regressor) on a transit or eclipse visit."""
+    x0, x1 = x_window
+    win = spectra[..., x0:x1]
+    xs = torch.arange(x0, x1, dtype=spectra.dtype, device=spectra.device)
+    return torch.sum(win * xs, dim=-1) / torch.clamp_min(
+        torch.sum(win, dim=-1), 1e-12)
+
+
+def drift_regressor(spectra: torch.Tensor, x_window: tuple[int, int],
+                    white_flux: torch.Tensor,
+                    oot: torch.Tensor) -> torch.Tensor:
+    """The model-free transit-immune drift regressor: the dispersion
+    centroid with the white dip t = max(0, 1 - white / mean_oot(white)),
+    zero out of transit, least-squares projected out."""
+    reg = dispersion_centroid(spectra, x_window)
+    w = oot.to(reg.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    wbar = torch.clamp_min(torch.sum(white_flux * w) / n, 1e-12)
+    t = torch.clamp_min(1.0 - white_flux / wbar, 0.0) * (1.0 - w)
+    tc = t - torch.mean(t)
+    rc = reg - torch.mean(reg)
+    coef = torch.sum(rc * tc) / torch.clamp_min(torch.sum(tc * tc), 1e-12)
+    return reg - coef * tc
+
+
+def _time_axis(exp_mid_s: torch.Tensor) -> torch.Tensor:
+    """The visit's time mapped onto [-1, 1]."""
+    return ((exp_mid_s - exp_mid_s[0])
+            / torch.clamp_min(exp_mid_s[-1] - exp_mid_s[0], 1e-9)
+            * 2.0 - 1.0)
+
+
+def transit_drift_basis(exp_mid_s: torch.Tensor, orbit: OrbitParams,
+                        ld: torch.Tensor, rp0, n_quad: int = 32
+                        ) -> torch.Tensor:
+    """Model basis (n_exp, 4) spanning a chromatic transit's centroid
+    excursion: the dip at ``rp0``, its derivative in rp (forward-mode
+    autodiff through the occultation integral), and both times the visit
+    time on [-1, 1]. Combine with clean_drift_regressor."""
+    z, in_front = projected_separation(exp_mid_s, orbit)
+
+    def lc(rp):
+        f = transit_depth_curve(z, rp, ld, n_quad)
+        return 1.0 - (1.0 - f) * in_front
+
+    rp = torch.as_tensor(rp0, dtype=torch.float32, device=exp_mid_s.device)
+    lc0, dlc = torch.func.jvp(lc, (rp,), (torch.ones_like(rp),))
+    dip = 1.0 - lc0
+    t = _time_axis(exp_mid_s)
+    return torch.stack([dip, dlc, dip * t, dlc * t], dim=1)
+
+
+def white_drift_basis(white_flux: torch.Tensor, oot: torch.Tensor,
+                      exp_mid_s: torch.Tensor) -> torch.Tensor:
+    """Data-driven contamination basis (n_exp, 2) when no transit model is
+    known: [d, d t] with d = 1 - white / mean_oot(white)."""
+    w = oot.to(white_flux.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    wbar = torch.clamp_min(torch.sum(white_flux * w) / n, 1e-12)
+    d = 1.0 - white_flux / wbar
+    t = _time_axis(exp_mid_s)
+    return torch.stack([d, d * t], dim=1)
+
+
+def clean_drift_regressor(cen: torch.Tensor, basis: torch.Tensor,
+                          exp_mid_s: torch.Tensor,
+                          poly_deg: int = 2) -> torch.Tensor:
+    """Remove a transit-shaped contamination from a drift regressor: fit
+    cen = B gamma + smooth(t) through the time-polynomial-orthogonalised
+    instrument Bt = (I - P_poly) B, gamma = (Bt^T B)^-1 Bt^T cen, and
+    return cen - B gamma. Basis columns are normalised before the solve.
+    fp32 contractions with TF32 off; ``solve_ex`` makes no host sync.
+
+    The regressor's mean is taken off before the solve and put back
+    after: the same gamma in real arithmetic (the polynomial spans the
+    constant, so Bt^T 1 = 0), but Bt^T cen no longer cancels a ~30 px
+    centroid level in float32. The near-singular solve amplifies that
+    cancellation: without it the port's and the JAX package's regressors
+    differed by 1e-4 px and their channel curves by 1.8e-5."""
+    level = cen.mean()
+    cen = cen - level
+    t = _time_axis(exp_mid_s)
+    T = torch.stack([t ** k for k in range(poly_deg + 1)], dim=1)
+    B = basis / torch.clamp_min(torch.linalg.norm(basis, dim=0),
+                                1e-12)[None, :]
+    Bt = B - T @ torch.linalg.solve_ex(T.T @ T, T.T @ B)[0]
+    eye = torch.eye(B.shape[1], dtype=B.dtype, device=B.device)
+    gam = torch.linalg.solve_ex(Bt.T @ B + 1e-9 * eye,
+                                (Bt.T @ cen)[:, None])[0][:, 0]
+    return cen - B @ gam + level
+
+
+def shift_detrend(flux: torch.Tensor, shifts: torch.Tensor,
+                  oot: torch.Tensor) -> torch.Tensor:
+    """Divide the linear drift response out of binned light curves
+    (n_exp,) or (n_exp, n_chan): F_ij = F_j (1 + c_j delta_i), c_j fitted
+    by least squares on the out-of-transit epochs only."""
+    squeeze = flux.dim() == 1
+    f = flux[:, None] if squeeze else flux
+    w = oot.to(f.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    d = (shifts - torch.sum(shifts * w) / n)[:, None]
+    fbar = torch.sum(f * w[:, None], dim=0) / n               # (n_chan,)
+    var = torch.clamp_min(torch.sum(w[:, None] * d * d, dim=0), 1e-9)
+    b = torch.sum(w[:, None] * d * (f - fbar), dim=0) / var
+    corr = f * (fbar / (fbar + b * d))
+    return corr[:, 0] if squeeze else corr
+
+
+# ---------------------------------------------------------------------------
+# Baselines
+# ---------------------------------------------------------------------------
+
+# Projected separation beyond which an epoch counts as out-of-transit
+# baseline (planet radii are <= 0.2 R_star for every supported system).
+OOT_Z = 1.25
+
+
+def out_of_transit_mask(exp_mid_s: torch.Tensor,
+                        orbit: OrbitParams) -> torch.Tensor:
+    """Boolean out-of-transit mask: the one definition of 'baseline'."""
+    z, in_front = projected_separation(exp_mid_s, orbit)
+    return (z > OOT_Z) | (in_front < 0.5)
+
+
+def scan_direction_factor(white: torch.Tensor, oot: torch.Tensor,
+                          reverse: torch.Tensor) -> torch.Tensor:
+    """Per-exposure divisor (..., n_exp) removing the forward/reverse scan
+    offset: reverse exposures are scaled by the ratio of the two
+    directions' out-of-transit means; 1 when either direction has fewer
+    than 2 out-of-transit exposures.
+
+    Args:
+      white: (..., n_exp) white flux; oot, reverse: (n_exp,) masks
+        (bool or float), reverse True on reverse-scan exposures.
+    """
+    w = torch.as_tensor(white, dtype=torch.float32)
+    o = torch.as_tensor(oot, device=w.device).to(torch.float32)
+    r = torch.as_tensor(reverse, device=w.device).to(torch.float32)
+    n_f = torch.sum(o * (1.0 - r))
+    n_r = torch.sum(o * r)
+    m_f = torch.sum(w * o * (1.0 - r), dim=-1) / torch.clamp_min(n_f, 1.0)
+    m_r = torch.sum(w * o * r, dim=-1) / torch.clamp_min(n_r, 1.0)
+    ok = (n_f >= 2.0) & (n_r >= 2.0) & (m_f > 0.0)
+    fac = torch.where(ok, m_r / torch.clamp_min(m_f, 1e-30), 1.0)
+    return torch.where(r > 0.0, fac[..., None], 1.0)
+
+
+def amp_offset_correct(nets: torch.Tensor, quad_map: torch.Tensor,
+                       y_window: tuple[int, int],
+                       x_window: tuple[int, int]) -> torch.Tensor:
+    """Per-exposure per-amplifier additive-offset removal for subarrays
+    without reference pixels: each quadrant's offset is the median of its
+    pixels outside the ``y_window`` x ``x_window`` source box (0 where
+    fewer than 16 remain), subtracted from the quadrant.
+
+    Args:
+      nets: (n_exp, S, S) background-subtracted net frames.
+      quad_map: (S, S) int quadrant index (calibration.quadrant_map).
+    """
+    S = nets.shape[-1]
+    quad_map = quad_map.to(nets.device).long()
+    src = torch.zeros((S, S), dtype=torch.bool, device=nets.device)
+    src[y_window[0]: y_window[1], x_window[0]: x_window[1]] = True
+    offs = []
+    for q in range(4):
+        sel = (quad_map == q) & ~src
+        med = _median(torch.where(sel, nets, math.nan).flatten(-2), -1,
+                      nan=True)
+        offs.append(torch.where(sel.sum() >= 16, med, 0.0))
+    offs = torch.stack(offs, dim=-1)                          # (n_exp, 4)
+    return nets - offs[..., quad_map]
+
+
+# ---------------------------------------------------------------------------
+# A visit's light curves
+# ---------------------------------------------------------------------------
+
+def _oot_normalise(flux: torch.Tensor, oot: torch.Tensor,
+                   channels: bool = False) -> torch.Tensor:
+    """Divide ``flux`` by its out-of-transit mean over the exposure axis:
+    the last axis of a white curve (..., n_exp), the one before it of
+    channel curves (..., n_exp, n_chan) (``channels``)."""
+    o = oot.to(flux.dtype)
+    if channels:
+        o = o[:, None]
+    base = torch.sum(flux * o, dim=-2 if channels else -1, keepdim=True) \
+        / torch.clamp_min(torch.sum(oot.to(flux.dtype)), 1.0)
+    return flux / base
+
+
+def _channel_flux(spectra: torch.Tensor, edges: np.ndarray) -> torch.Tensor:
+    """Channel sums (..., n_chan) of spectra (..., S) as differences of the
+    cumulative column flux at the edges (the JAX package's recipe, so
+    both packages round alike)."""
+    cum = torch.cat([torch.zeros_like(spectra[..., :1]),
+                     prefix_sum(spectra, dim=-1)], dim=-1)
+    e = torch.as_tensor(edges, device=spectra.device)
+    return cum[..., e[1:]] - cum[..., e[:-1]]
+
+
+def reduce_visit(reads_dn: torch.Tensor, gain,
+                 exp_mid_s: torch.Tensor, orbit: OrbitParams,
+                 *, y_window: tuple[int, int], x_window: tuple[int, int],
+                 bg_rows: tuple[int, int] = (0, 16),
+                 n_chan: int = 16,
+                 read_times: torch.Tensor | None = None,
+                 good_diffs: torch.Tensor | None = None,
+                 optimal: bool = False,
+                 read_noise_e: float = 12.0,
+                 align: bool = False,
+                 ld: torch.Tensor | None = None,
+                 rp0=0.155,
+                 scan_dir: torch.Tensor | None = None,
+                 quad_map: torch.Tensor | None = None) -> ReducedVisit:
+    """White and channel light curves from a visit's raw reads, every
+    exposure in one tensor program.
+
+    Args:
+      reads_dn: (n_exp, NR, S, S) raw reads in time order.
+      exp_mid_s: (n_exp,) exposure mid-times on the orbit's clock.
+      y_window: extraction rows; x_window: dispersion columns carrying
+        signal; bg_rows: sky rows (per-column median); n_chan: channels
+        across x_window.
+      read_times: (NR,) sample times: the up-the-ramp slope instead of CDS.
+      good_diffs: (n_exp, NR-1, S, S) bool interval masks (True = usable)
+        from ~cr_bad_diff_masks / good_diff_masks_from_dq: the DQ-aware
+        repair.
+      optimal: Horne extraction with the visit-mean frame's profile and
+        the estimator's read-noise floor (``read_noise_e``).
+      align: fit per-exposure drifts (``x_shifts``), detrend the curves
+        against a transit-cleaned centroid (the model basis with ``ld``
+        and ``rp0``, else the white dip), and realign the spectra.
+      scan_dir: (n_exp,) reverse-scan mask: each direction normalised by
+        its own out-of-transit baseline first.
+      quad_map: (S, S) amplifier-quadrant map: per-exposure per-amplifier
+        offset removal (amp_offset_correct).
+    """
+    net = net_frame(reads_dn, gain, read_times, good_diffs)  # (n_exp, S, S)
+    bg = _median(net[..., bg_rows[0]: bg_rows[1], :], -2)
+    nets = net - bg[..., None, :]
+    if quad_map is not None:
+        nets = amp_offset_correct(nets, quad_map, y_window, x_window)
+    if optimal:
+        prof = spatial_profile(torch.mean(nets, dim=0), y_window)
+        floor = read_noise_var_e2(read_noise_e, reads_dn.shape[1],
+                                  ramp=read_times is not None)
+        spectra = optimal_extract(nets, prof, y_window, floor)
+    else:
+        spectra = nets[:, y_window[0]: y_window[1], :].sum(dim=1)
+
+    oot = out_of_transit_mask(exp_mid_s, orbit)
+    if scan_dir is not None:
+        corr = scan_direction_factor(
+            spectra[:, x_window[0]: x_window[1]].sum(dim=1), oot, scan_dir)
+        spectra = spectra / corr[:, None]
+
+    if align:
+        shifts = spectral_shifts(spectra, x_window)
+    else:
+        shifts = torch.zeros(spectra.shape[0], dtype=spectra.dtype,
+                             device=spectra.device)
+
+    edges = _channel_edges(x_window, n_chan)
+    cols = torch.as_tensor(np.stack([edges[:-1], edges[1:]], axis=1),
+                           dtype=torch.int32, device=spectra.device)
+    white_flux = spectra[:, x_window[0]: x_window[1]].sum(dim=1)
+    chan_flux = _channel_flux(spectra, edges)                 # (n_exp, n_chan)
+    if align:
+        if ld is not None:
+            basis = transit_drift_basis(exp_mid_s, orbit, ld, rp0)
+        else:
+            basis = white_drift_basis(white_flux, oot, exp_mid_s)
+        reg = clean_drift_regressor(
+            dispersion_centroid(spectra, x_window), basis, exp_mid_s)
+        white_flux = shift_detrend(white_flux, reg, oot)
+        chan_flux = shift_detrend(chan_flux, reg, oot)
+    white = _oot_normalise(white_flux, oot)
+    chan = _oot_normalise(chan_flux, oot, channels=True)
+
+    spectra_out = align_spectra(spectra, shifts) if align else spectra
+    return ReducedVisit(spectra_e=spectra_out, white_lc=white,
+                        channel_lc=chan, channel_cols=cols, x_shifts=shifts)
+
+
+# ---------------------------------------------------------------------------
+# Depth fits
+# ---------------------------------------------------------------------------
+
+def _beta_red(resid: torch.Tensor, w: torch.Tensor,
+              n_bin: int) -> torch.Tensor:
+    """Pont et al. (2006) time-binning red-noise factor of residuals
+    (..., n) in time order: the binned scatter (bins of ``n_bin``) over
+    its white-noise expectation, floored at 1. Weights ``w`` (n,)."""
+    n = resid.shape[-1]
+    m = n // n_bin
+    r = (resid * w)[..., : m * n_bin].reshape(resid.shape[:-1] + (m, n_bin))
+    wb = w[: m * n_bin].reshape(m, n_bin)
+    nb = torch.clamp_min(wb.sum(dim=-1), 1.0)                 # (m,)
+    bmean = r.sum(dim=-1) / nb
+    mu = bmean.mean(dim=-1, keepdim=True)
+    var_binned = torch.sum((bmean - mu) ** 2, dim=-1) / max(m - 1, 1)
+    sigma1_sq = (torch.sum(w * resid ** 2, dim=-1)
+                 / torch.clamp_min(torch.sum(w) - 1.0, 1.0))
+    expect = sigma1_sq / torch.clamp_min(nb.mean(), 1.0)
+    return torch.sqrt(torch.clamp_min(
+        var_binned / torch.clamp_min(expect, 1e-30), 1.0))
+
+
+def fit_depths(channel_lc: torch.Tensor, exp_mid_s: torch.Tensor,
+               orbit: OrbitParams, ld, rp_init,
+               n_quad: int = 32, n_newton: int = 12,
+               weights: torch.Tensor | None = None,
+               baseline_var: bool = True,
+               red_noise: bool = True
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel Rp/Rs by Newton steps on the chi^2 of the transit model.
+
+    Each channel's chi^2 depends on its own rp only, so the Hessian is
+    diagonal: one ``autograd.grad`` of the summed chi^2 gives every
+    channel's gradient, a second of the gradients' sum every channel's
+    curvature, and one forward-mode ``jvp`` with a tangent of ones the
+    model's derivative. The launches do not grow with the channels or the
+    realisations, and the steps make no host sync.
+
+    Args:
+      channel_lc: (..., n_exp, n_chan) normalised light curves; leading
+        axes (realisations) are fitted together.
+      ld: shared (4,) Claret coefficients or per-channel (n_chan, 4).
+      rp_init: a scalar start.
+      weights: optional (n_exp,) exposure weights shared by the channels.
+      baseline_var: add the out-of-transit normalisation variance
+        (drp/deps = 2 sum(w m' lc) / h, var(eps) = noise_var / N_oot).
+      red_noise: scale sigma by the Pont beta of the residuals (bins of
+        n_exp // 8, at least 2).
+
+    Returns (rp_hat, rp_sigma), each (..., n_chan).
+    """
+    lc = channel_lc.to(torch.float32)
+    dev = lc.device
+    n_exp, n_chan = lc.shape[-2:]
+    z, in_front = projected_separation(exp_mid_s, orbit)
+    zc, fc = z[:, None], in_front[:, None]
+    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+    ld_chan = (ld if ld.dim() == 2 else ld[None, :]).expand(n_chan, 4)
+    w = (torch.ones(n_exp, dtype=torch.float32, device=dev)
+         if weights is None
+         else torch.as_tensor(weights, dtype=torch.float32, device=dev))
+    wc = w[:, None]
+    oot_f = out_of_transit_mask(exp_mid_s, orbit).to(torch.float32)
+
+    def model(rp):          # (..., n_chan) -> (..., n_exp, n_chan)
+        f = transit_depth_curve(zc, rp[..., None, :], ld_chan, n_quad)
+        return 1.0 - (1.0 - f) * fc
+
+    def grad_and_curvature(rp):
+        with torch.enable_grad():
+            r = rp.detach().requires_grad_(True)
+            chi2 = torch.sum(wc * (model(r) - lc) ** 2, dim=-2)
+            g, = torch.autograd.grad(chi2.sum(), r, create_graph=True)
+            h, = torch.autograd.grad(g.sum(), r)
+        return g.detach(), h
+
+    rp = torch.as_tensor(rp_init, dtype=torch.float32, device=dev).expand(
+        lc.shape[:-2] + (n_chan,)).clone()
+    for _ in range(n_newton):
+        g, h = grad_and_curvature(rp)
+        step = g / torch.where(torch.abs(h) > 1e-12, h, 1e-12)
+        rp = torch.clamp(rp - step, 0.01, 0.5)
+    resid = model(rp).detach() - lc
+    noise_var = (torch.sum(wc * resid ** 2, dim=-2)
+                 / torch.clamp_min(torch.sum(w) - 1.0, 1.0))
+    h = torch.clamp_min(grad_and_curvature(rp)[1], 1e-12)
+    var_rp = 2.0 * noise_var / h
+    if baseline_var:
+        _, mprime = torch.func.jvp(model, (rp,), (torch.ones_like(rp),))
+        drp_deps = 2.0 * torch.sum(wc * mprime * lc, dim=-2) / h
+        n_oot = torch.clamp_min(torch.sum(w * oot_f), 1.0)
+        var_rp = var_rp + drp_deps ** 2 * noise_var / n_oot
+    sigma = torch.sqrt(var_rp)
+    if red_noise:
+        sigma = sigma * _beta_red(resid.transpose(-1, -2), w,
+                                  max(n_exp // 8, 2))
+    return rp, sigma
+
+
+def common_mode_correct(white_lc: torch.Tensor, channel_lc: torch.Tensor,
+                        exp_mid_s: torch.Tensor, orbit: OrbitParams,
+                        ld, rp_init, n_quad: int = 32, n_newton: int = 12,
+                        return_white_sigma: bool = False):
+    """Divide white-light systematics out of the channel curves: the ratio
+    of the white curve (..., n_exp) to its fitted transit model is a
+    per-exposure common-mode template. Returns the corrected channel
+    curves (..., n_exp, n_chan); with ``return_white_sigma`` also the
+    white fit's depth sigma (...), the common-mode error every channel
+    depth inherits."""
+    rp_white, sig_white = fit_depths(white_lc[..., None], exp_mid_s, orbit,
+                                     ld, rp_init, n_quad, n_newton)
+    z, in_front = projected_separation(exp_mid_s, orbit)
+    ld = torch.as_tensor(ld, dtype=torch.float32, device=white_lc.device)
+    f = transit_depth_curve(z, rp_white, ld, n_quad)          # (..., n_exp)
+    white_model = 1.0 - (1.0 - f) * in_front
+    template = white_lc / white_model
+    corrected = channel_lc / template[..., None]
+    if return_white_sigma:
+        return corrected, sig_white[..., 0]
+    return corrected
+
+
+def divide_white_fit_depths(white_lc: torch.Tensor, channel_lc: torch.Tensor,
+                            exp_mid_s: torch.Tensor, orbit: OrbitParams,
+                            ld, rp_init, n_quad: int = 32,
+                            n_newton: int = 12,
+                            weights: torch.Tensor | None = None,
+                            return_components: bool = False
+                            ) -> tuple[torch.Tensor, ...]:
+    """Divide-white, then the per-channel depth fit, with the common-mode
+    error of the white fit propagated: the depths' covariance is
+    diag(sigma_rel^2) + sigma_common^2 ones((n, n)).
+
+    Returns (rp_hat, rp_sigma), rp_sigma = sqrt(sigma_rel^2 +
+    sigma_common^2); with ``return_components``, (rp_hat, rp_sigma,
+    sigma_rel, sigma_common), sigma_common one number per curve set.
+    """
+    corrected, sig_white = common_mode_correct(
+        white_lc, channel_lc, exp_mid_s, orbit, ld, rp_init, n_quad,
+        n_newton, return_white_sigma=True)
+    rp, sig = fit_depths(corrected, exp_mid_s, orbit, ld, rp_init,
+                         n_quad, n_newton, weights=weights)
+    total = torch.sqrt(sig ** 2 + sig_white[..., None] ** 2)
+    if return_components:
+        return rp, total, sig, sig_white
+    return rp, total
+
+
+def spectra_to_depths(spectra_e: torch.Tensor, exp_mid_s: torch.Tensor,
+                      orbit: OrbitParams, ld, rp_init, *,
+                      x_window: tuple[int, int], n_chan: int = 8,
+                      divide_white: bool = True,
+                      subtract_bg: bool = False, n_quad: int = 32,
+                      n_newton: int = 12,
+                      scan_dir: torch.Tensor | None = None,
+                      sigma_components: bool = False
+                      ) -> tuple[torch.Tensor, ...]:
+    """Extracted spectra -> fitted channel depths, every realisation in one
+    tensor program: (mc, n_exp, S) gives (mc, n_chan) depths and sigmas,
+    one visit (n_exp, S) gives (n_chan,).
+
+    Channels are binned over ``x_window`` from the cumulative column
+    flux, normalised by their out-of-transit mean, divided by the white
+    curve's systematics template (``divide_white``) and fitted.
+    ``subtract_bg``: remove each exposure's sky, the median of the columns
+    outside ``x_window``, from the white and channel fluxes (the
+    ensemble's spectra are full-frame column sums). ``scan_dir``: (n_exp,)
+    reverse-scan mask, each direction normalised by its own baseline.
+    ``sigma_components``: also return (sigma_rel, sigma_common); without
+    divide_white sigma_rel is the total and sigma_common 0.
+    """
+    sp = torch.as_tensor(spectra_e).to(torch.float32)
+    squeeze = sp.dim() == 2
+    if squeeze:
+        sp = sp[None]
+    t = torch.as_tensor(exp_mid_s, device=sp.device).to(torch.float32)
+    oot = out_of_transit_mask(t, orbit).to(torch.float32)
+    edges = _channel_edges(x_window, n_chan)
+    S = sp.shape[-1]
+    widths = torch.as_tensor((edges[1:] - edges[:-1]).astype(np.float32),
+                             device=sp.device)
+    has_outside = x_window[0] > 0 or x_window[1] < S
+
+    white = sp[..., x_window[0]: x_window[1]].sum(dim=-1)    # (mc, n_exp)
+    chan = _channel_flux(sp, edges)                  # (mc, n_exp, n_chan)
+    if subtract_bg and has_outside:
+        s_out = torch.cat([sp[..., : x_window[0]], sp[..., x_window[1]:]],
+                          dim=-1)
+        bg_col = _median(s_out, -1)                           # (mc, n_exp)
+        white = white - (x_window[1] - x_window[0]) * bg_col
+        chan = chan - bg_col[..., None] * widths
+    if scan_dir is not None:
+        corr = scan_direction_factor(white, oot, scan_dir)
+        white = white / corr
+        chan = chan / corr[..., None]
+    white = _oot_normalise(white, oot)
+    chan = _oot_normalise(chan, oot, channels=True)
+    if divide_white:
+        out = divide_white_fit_depths(white, chan, t, orbit, ld, rp_init,
+                                      n_quad, n_newton,
+                                      return_components=sigma_components)
+    else:
+        rp, sig = fit_depths(chan, t, orbit, ld, rp_init, n_quad, n_newton)
+        out = ((rp, sig, sig, torch.zeros(rp.shape[:-1], device=rp.device))
+               if sigma_components else (rp, sig))
+    if squeeze:
+        out = tuple(o[0] for o in out)
+    return out
+
+
+def constrained_mask(depth, sigma, *, sigma_floor: float = 0.05,
+                     bounds: tuple[float, float] | None = (0.0105, 0.495)):
+    """Per-channel flag of the depths that carry information: False where
+    the depth or sigma is not finite, sigma >= ``sigma_floor``, or the
+    depth sits within ``bounds`` of fit_depths' clip range [0.01, 0.5]
+    (None for unclipped fitters). Takes and returns NumPy arrays or
+    tensors alike."""
+    lib = torch if isinstance(depth, torch.Tensor) else np
+    ok = lib.isfinite(depth) & lib.isfinite(sigma) & (sigma < sigma_floor)
+    if bounds is not None:
+        ok = ok & (depth > bounds[0]) & (depth < bounds[1])
+    return ok

@@ -11,12 +11,12 @@ realisation (Gaussian around the configured value) and stores it as a
 label; ``--fp-sigma`` sweeps the eclipse depth Fp/Fs the same way (label
 ``fp``, the band mean). Persistence and RECTE, when the YAML enables them,
 are computed once from the visit's noise-free stimulus and shared by every
-realisation. Output: ``chunk_XXXX.npz`` files of extracted spectra and
-labels and a ``manifest.json``; a re-run resumes at the first missing
-chunk.
+realisation. ``--recover N_CHAN`` also reduces every chunk on the device
+and stores recovered depth labels (transit visits only). Output:
+``chunk_XXXX.npz`` files of extracted spectra and labels and a
+``manifest.json``; a re-run resumes at the first missing chunk.
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
-``--recover`` (ROADMAP Queue A8) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -49,17 +49,15 @@ def main(argv: list[str] | None = None) -> int:
                              "default DQ-aware repair at extraction")
     parser.add_argument("--recover", type=int, nargs="?", const=8,
                         default=None, metavar="N_CHAN",
-                        help="also store recovered depth labels (not "
-                             "ported yet)")
+                        help="also reduce every chunk on the device and "
+                             "store recovered_rp/_sigma labels (N_CHAN "
+                             "channels, default 8) — exposes the "
+                             "reduction-systematic structure that injected "
+                             "labels alone hide (transit datasets only)")
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch path on the CPU")
     args = parser.parse_args(argv)
 
-    if args.recover is not None:
-        raise NotImplementedError(
-            "run_dataset --recover is not ported to wayne_tpu_torch yet: "
-            "the depth fits come with the reduction pipeline (ROADMAP "
-            "Queue A8)")
     if args.n_mc % args.chunk_mc:
         parser.error("--n-mc must be a multiple of --chunk-mc")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
@@ -102,6 +100,47 @@ def main(argv: list[str] | None = None) -> int:
         overrides["fp_over_fs"] = fp_mc
         labels["fp"] = fp_mc.mean(axis=1)
 
+    recover = None
+    if args.recover is not None:
+        if args.recover < 1:
+            parser.error("--recover needs at least 1 channel")
+        if obs.static.eclipse:
+            parser.error("--recover fits transit depths; eclipse/"
+                         "phase-curve datasets are not supported")
+        import torch
+
+        from wayne_tpu_torch.ops.dispersion import trace_params, wl_to_x
+        from wayne_tpu_torch.pytree import tree_map
+
+        # the dispersed trace's columns: the recovered channels span them
+        tp = trace_params(obs.tables, obs.scenes.x_ref[0],
+                          obs.scenes.y_ref[0])
+        xc = wl_to_x(obs.tables.wl_centers, tp).cpu().numpy()
+        x_lo = int(max(np.floor(xc.min()), 0))
+        x_hi = int(min(np.ceil(xc.max()) + 1, cfg.subarray))
+        if x_hi - x_lo < args.recover:
+            parser.error("--recover: dispersed trace covers "
+                         f"{x_hi - x_lo} columns < {args.recover} "
+                         "channels")
+        ld = obs.scenes.ld[0].to(torch.float32)
+        if ld.dim() == 2:
+            ld = ld.mean(dim=0)
+        exptime = float(obs.tables.read_times[-1])
+        recover = {
+            "exp_mid_s": (obs.scenes.exp_start_s.cpu().numpy()
+                          + exptime / 2.0).astype(np.float32),
+            "orbit": tree_map(lambda x: x[0], obs.scenes.orbit),
+            "ld": ld, "rp0": float(cfg.planet.rp_over_rs or 0.15),
+            "x_window": (x_lo, x_hi), "n_chan": args.recover,
+        }
+        # forward/reverse alternation: per-direction baselines remove the
+        # upstream/downstream offset from the recovered labels
+        rev = obs.scenes.scan_speed.cpu().numpy() < 0
+        if rev.any():
+            recover["scan_dir"] = rev.astype(np.float32)
+        print(f"recovered labels: {args.recover} channels over columns "
+              f"[{x_lo}, {x_hi})")
+
     # one persistence and trap solution, from the noise-free stimulus,
     # shared by every realisation
     obs._ensure_persistence()
@@ -111,7 +150,7 @@ def main(argv: list[str] | None = None) -> int:
         obs.scenes, obs.tables, obs.static, args.outdir,
         n_mc=args.n_mc, chunk_mc=args.chunk_mc, seed=args.seed,
         overrides=overrides or None, labels=labels or None, progress=print,
-        dq_aware=not args.raw_cr, device=obs.device)
+        dq_aware=not args.raw_cr, recover=recover, device=obs.device)
     print(f"dataset complete: {len(manifest['chunks'])} chunks in "
           f"{args.outdir}")
     return 0
