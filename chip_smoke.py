@@ -75,6 +75,26 @@ process per source, in parallel, linked into one library) and then:
    into DQ, ERR and bytes) and ``generate()`` of the full-systematics visit
    on each writer; (d) ``ExposureGenerator.scanning_frame`` at 512^2
    through B1.
+9. the closed reduction loop: ``generate()`` of the headline visit's
+   first orbit, ``run_calwf3`` on the card against ``--cpu``,
+   ``reduce_visit`` card against CPU, and ``run_dataset --recover 8`` on
+   the uncut visit (see ``phase_reduction``);
+10. the reduction CLIs at full width: (a) ``etc.predict`` of the headline
+   YAML (one B1 launch, the noise flags off, held against its plain
+   version; the report card = CPU); (b) the uncut headline visit through
+   ``run_visit --quicklook`` (the PNGs where matplotlib is installed, else
+   the quicklook's read-back and reduction without them), then
+   ``run_reduce`` three times (divide-white with optimal extraction, the
+   sky fit and the light curves; the ramp fit with a free ephemeris and
+   robust clipping; the RECTE fit), each timed in parts, its depths within
+   max(6 sigma, 0.01) of the injected, its fits held against the same fits
+   on the CPU on the spectra the card extracted, and ``fit_white_ramp`` /
+   ``fit_white_recte`` timed with their kernel launches counted; (c) the
+   eclipse visit through ``run_reduce --mode eclipse --detrend ramp``
+   (Fp/Fs within 6 sigma) and ``fit_phase_curve`` on phase 7's
+   phase-curve curves (fp, A and the offset within 6 sigma). ``python3
+   chip_smoke.py --phases 9,10`` runs those phases alone and prints no
+   result lines.
 
 The JSON line's launch counts add up every phase's.
 
@@ -1025,16 +1045,18 @@ _STEP_FLAGS = ("poisson", "read_noise", "non_linearity", "bias",
                "scalar_gain", "with_cr", "bg_poisson", "ipc", "exact_poisson")
 
 
-def kernels_in(fn, records: bool = False):
+def kernels_in(fn, records: bool = False, warmup: bool = True):
     """The CUDA kernels ``fn()`` launches, counted as the host's launch
     calls (``cudaLaunchKernel`` and kin) in a ``torch.profiler`` trace.
     CUPTI drops a few of the device's kernel records in a trace of
     ~16 000 kernels (1-3 a trace on the H100), never a launch call; with
-    ``records`` also the kernel records the trace kept."""
+    ``records`` also the kernel records the trace kept. ``warmup``: one
+    untraced call first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()                                                # warm-up
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1220,8 +1242,9 @@ def phase_full_systematics(card: str) -> tuple:
 
 def phase_eclipse_and_program(card: str) -> int:
     """simulate() of the eclipse visit (against the same visit without
-    planet light) and of the phase-curve visit, then ``run_program`` on
-    the three-visit program. Returns B1's launches."""
+    planet light) and of the phase-curve visit (its reads reduced for
+    phase 10c), then ``run_program`` on the three-visit program. Returns
+    (B1's launches, the phase-curve visit's curves)."""
     import dataclasses
 
     import numpy as np
@@ -1253,14 +1276,14 @@ def phase_eclipse_and_program(card: str) -> int:
               f"[{card}] (first call, {wall:.3f} s)")
         white = (res.reads_dn[:, -1] - res.reads_dn[:, 0]).double().sum(
             (-2, -1))
-        return obs, white
+        return obs, white, res
 
     cfg = load_yaml(ECLIPSE)
     print(f"phase 7: {os.path.relpath(ECLIPSE, HERE)}, "
           f"{os.path.relpath(PHASE, HERE)} and "
           f"{os.path.relpath(PROGRAM, HERE)}")
-    obs, lit = simulate(cfg, "eclipse visit")
-    _, dark = simulate(dataclasses.replace(cfg, planet=dataclasses.replace(
+    obs, lit, _ = simulate(cfg, "eclipse visit")
+    _, dark, _ = simulate(dataclasses.replace(cfg, planet=dataclasses.replace(
         cfg.planet, eclipse_depth=0.0)), "eclipse visit without planet light")
     sc = obs.scenes
     ends = sc.exp_start_s[:, None] + torch.tensor(
@@ -1276,7 +1299,9 @@ def phase_eclipse_and_program(card: str) -> int:
           f"bit-identical to the visit without planet light, the other "
           f"{int((~hidden).sum())} hold more charge")
     del obs, sc
-    simulate(load_yaml(PHASE), "phase-curve visit")
+    obs, _, res = simulate(load_yaml(PHASE), "phase-curve visit")
+    curves = phase_curve_curves(obs, res, card)
+    del obs, res
 
     loaded = []
     real = observation._load_fluence_map
@@ -1322,7 +1347,7 @@ def phase_eclipse_and_program(card: str) -> int:
           "fluence pass, visit, two direct images)")
     print(f"timing [{card}]: run_program 3 visits x {n} exposures "
           f"({cfg.subarray}^2, NSAMP={cfg.nsamp}) in {wall:.3f} s")
-    return launches
+    return launches, curves
 
 
 # ---------------------------------------------------------------------------
@@ -2049,7 +2074,480 @@ def phase_reduction(card: str) -> int:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# Phase 10: the reduction CLIs at full width
+# ---------------------------------------------------------------------------
+
+RP_INJECTED = 0.1595        # the headline YAML's rp_over_rs (no spectrum)
+FP_INJECTED = 5.0e-4        # the eclipse and phase-curve YAMLs' Fp/Fs
+AMP_INJECTED, OFFSET_INJECTED_DEG = 0.9, 12.0    # the phase-curve YAML's
+REDUCE_RUNS = (             # run_reduce on the uncut headline visit
+    ("divide-white", ["--extract", "optimal", "--sky-fit", "--save-lc"]),
+    ("ramp", ["--detrend", "ramp", "--fit-geometry", "--clip-sigma", "5"]),
+    ("recte", ["--detrend", "recte"]),
+)
+
+
+def phase_curve_curves(obs, res, card: str) -> dict:
+    """``reduce_visit`` of the phase-curve visit's reads on the card (CDS,
+    the intervals its cosmic rays hit repaired from the simulator's hit
+    lists, RECOVER_CHAN channels over the auto windows): the white and
+    channel curves, the mid-times and the orbit, on the CPU, for phase
+    10c."""
+    from wayne_tpu_torch import reduction as red
+    from wayne_tpu_torch.pytree import tree_map
+
+    reads = res.reads_dn
+    y_win, x_win, bg_rows = _auto_windows(reads[:, -1] - reads[:, 0])
+    good = ~red.cr_bad_diff_masks(res.cr_pos, res.cr_count, reads.shape[-1])
+    sc = obs.scenes
+    mid = sc.exp_start_s + obs.detector_exptime / 2.0
+    orbit = tree_map(lambda x: x[0], sc.orbit)
+    rv, wall = _synced(lambda: red.reduce_visit(
+        reads, obs.tables.gain, mid, orbit, y_window=y_win, x_window=x_win,
+        bg_rows=bg_rows, n_chan=RECOVER_CHAN, good_diffs=good))
+    print(f"timing [{card}]: reduce_visit of the phase-curve visit "
+          f"({tuple(reads.shape)}, CR intervals repaired) {wall:.3f} s; "
+          f"windows rows {y_win}, columns {x_win}, sky rows {bg_rows}")
+    del good
+    return dict(white=rv.white_lc.cpu(), chan=rv.channel_lc.cpu(),
+                mid=mid.cpu(), orbit=tree_map(lambda x: x.cpu(), orbit),
+                rp=float(sc.rp_over_rs[0].mean()))
+
+
+def _reduce_cli(args: list, label: str, card: str) -> tuple:
+    """``run_reduce.main(args)`` with its output captured, timed in four
+    parts: the set-up before the extraction (the YAML, the calibration
+    tables on the card, the first header), reading the files
+    (``read_ima`` inside the extraction), the rest of the extraction, and
+    everything after it (the fits and the report). Returns (the report,
+    the extraction's return value, the seconds)."""
+    import torch
+
+    from wayne_tpu_torch import run_reduce
+
+    real_read, real_extract = run_reduce.read_ima, run_reduce.extract_from_files
+    spent = {"read": 0.0}
+    got = {}
+
+    def read(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_read(*a, **kw)
+        spent["read"] += time.perf_counter() - t0
+        return out
+
+    def extract(*a, **kw):
+        torch.cuda.synchronize()
+        spent["setup"] = time.perf_counter() - t_main
+        spent["read"] = 0.0           # the header read before it is not
+        out, wall = _synced(lambda: real_extract(*a, **kw))
+        spent["extract"] = wall
+        got["extracted"] = out
+        return out
+
+    run_reduce.read_ima, run_reduce.extract_from_files = read, extract
+    said = io.StringIO()
+    torch.cuda.synchronize()
+    t_main = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(said):
+            rc, wall = _synced(lambda: run_reduce.main(args))
+    finally:
+        run_reduce.read_ima, run_reduce.extract_from_files = (
+            real_read, real_extract)
+    out = args[args.index("-o") + 1]
+    with open(out) as fh:
+        report = json.load(fh)
+    secs = dict(setup=spent["setup"], read=spent["read"],
+                extract=spent["extract"] - spent["read"],
+                fits=wall - spent["setup"] - spent["extract"], total=wall)
+    check(rc == 0, f"run_reduce {label}: rc 0; "
+          + "; ".join(ln for ln in said.getvalue().splitlines()
+                      if ln.startswith(("white", "channel", "robust",
+                                        "auto windows")))[:600])
+    print(f"timing [{card}]: run_reduce {label}: {secs['total']:.3f} s = "
+          f"set-up {secs['setup']:.3f} s + reading files "
+          f"{secs['read']:.3f} s + extraction {secs['extract']:.3f} s + "
+          f"fits and report {secs['fits']:.3f} s")
+    return report, got["extracted"], secs
+
+
+def _replay_on_cpu(args: list, extracted, label: str) -> dict:
+    """The same ``run_reduce`` flags on the CPU, fed the spectra the card
+    extracted (read back from ``spectra.fits``) and the card's windows,
+    mid-times, scan angles and sky fit in place of the extraction: the
+    fits alone, card against CPU. Returns the CPU's report."""
+    import torch
+
+    from wayne_tpu_torch import run_reduce
+    from wayne_tpu_torch.io.fits import read_fits
+
+    visit = args[args.index("-d") + 1]
+    planes = {h.get("EXTNAME"): d
+              for h, d in read_fits(os.path.join(visit, "spectra.fits"))[1:]}
+    spectra = torch.from_numpy(planes["SPECTRA"].astype("float32"))
+    _, mids, windows, angs, sky = extracted
+    check(set(planes) == {"SPECTRA", "WAVELENGTH", "TIME"}
+          and torch.equal(spectra, extracted[0].cpu())
+          and (planes["TIME"] == mids).all(),
+          f"spectra.fits ({label}): SPECTRA {tuple(spectra.shape)}, "
+          "WAVELENGTH and TIME, the card's extracted spectra exactly")
+    real = run_reduce.extract_from_files
+    run_reduce.extract_from_files = (
+        lambda *a, **kw: (spectra, mids, windows, angs, sky))
+    out = args[args.index("-o") + 1].replace(".json", "_cpu.json")
+    cpu_args = [a for a in args if a not in ("--plot", "--save-spectra")]
+    cpu_args[cpu_args.index("-o") + 1] = out
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, wall = _synced(lambda: run_reduce.main(cpu_args + ["--cpu"]))
+    finally:
+        run_reduce.extract_from_files = real
+    print(f"  the fits of run_reduce {label} on the CPU: {wall:.3f} s")
+    with open(out) as fh:
+        return json.load(fh)
+
+
+def _within_6_sigma(report: dict, label: str) -> None:
+    """White Rp/Rs (when fitted) and every channel depth of a transit
+    report within max(6 sigma, 0.01) of the injected Rp/Rs."""
+    rows = [(f"channel {i}", c["rp_over_rs"], c["rp_sigma"])
+            for i, c in enumerate(report["channels"])]
+    for key in ("white_ramp_fit", "white_recte_fit"):
+        if key in report:
+            rows.insert(0, ("white", report[key]["rp_over_rs"],
+                            report[key]["rp_sigma"]))
+    worst = max(abs(v - RP_INJECTED) / max(6.0 * sg, 0.01)
+                for _, v, sg in rows)
+    check(worst < 1.0,
+          f"run_reduce {label}: recovered depths within max(6 sigma, 0.01) "
+          f"of the injected {RP_INJECTED} (largest |err| / bar "
+          f"{worst:.3f}): "
+          + ", ".join(f"{n} {v:.5f} +- {sg:.5f}" for n, v, sg in rows))
+
+
+def _phase_curve_fits(pc: dict, card: str) -> None:
+    """``fit_phase_curve`` of the phase-curve visit's white and channel
+    curves (``phase_curve_curves``) on the card and on the CPU: card =
+    CPU, and fp, A and the offset within 6 sigma of the injected values
+    on the white curve and on the interior channels: the pointing drift
+    moves the spectrum's two ends through the window's edge channels, a
+    systematic this unaligned reduction leaves in them."""
+    import torch
+
+    import wayne_tpu_torch.reduction as red
+    from wayne_tpu_torch.pytree import tree_map
+
+    fits = {}
+    for k, where in enumerate(("cuda", "cpu")):
+        on = lambda x: x.to(torch.device(where))
+        orbit = tree_map(on, pc["orbit"])
+        for label, lc in (("white", pc["white"]), ("channels", pc["chan"])):
+            fits[label, k], wall = _synced(lambda: red.fit_phase_curve(
+                on(lc), on(pc["mid"]), orbit, pc["rp"]))
+            if k == 0:
+                print(f"timing [{card}]: fit_phase_curve ({label}, "
+                      f"{tuple(lc.shape)}) {wall * 1e3:.2f} ms")
+    for label in ("white", "channels"):
+        a, b = fits[label, 0], fits[label, 1]
+        # the CPU tests' bars (tests/test_torch_sky_phase_fits.py): fp, A
+        # and the offset within 0.1 of their sigmas or the harmonic
+        # coefficients' float32 floor, fp_sigma rtol 1e-3, amp_sigma within
+        # 1e-3 + 0.2 sigma_fp / |fp| relative
+        fp = b.fp.abs()
+        s_off = b.amp_sigma / b.amp.clamp_min(1e-9)
+        amp_of_bar = float(((a.amp_sigma.cpu() / b.amp_sigma - 1.0).abs()
+                            / (1e-3 + 0.2 * b.fp_sigma / fp)).max())
+        gap = {k: float(((getattr(a, k).cpu() - getattr(b, k)).abs()
+                         / bar).max())
+               for k, bar in (
+                   ("fp", torch.clamp_min(0.1 * b.fp_sigma, 1e-5)),
+                   ("amp", torch.maximum(0.1 * b.amp_sigma, 3e-5 / fp)),
+                   ("offset_rad", torch.maximum(0.1 * s_off,
+                                                2e-5 / (b.amp * fp))))}
+        gap.update({k: float(((getattr(a, k).cpu() - getattr(b, k)).abs()
+                              / getattr(b, k)).max())
+                    for k in ("fp_sigma", "amp_sigma")})
+        check(max(gap["fp"], gap["amp"], gap["offset_rad"]) <= 1.0
+              and gap["fp_sigma"] <= 1e-3 and amp_of_bar <= 1.0,
+              f"fit_phase_curve ({label}) card = CPU: fp, A and the offset "
+              f"{gap['fp']:.3g}, {gap['amp']:.3g} and {gap['offset_rad']:.3g}"
+              f" of their bars apart (0.1 sigma or the float32 floor), "
+              f"fp_sigma "
+              f"{gap['fp_sigma']:.3g} relative (bar 1e-3), amp_sigma "
+              f"{gap['amp_sigma']:.3g} relative, {amp_of_bar:.3g} of its bar "
+              f"1e-3 + 0.2 sigma_fp / |fp|")
+        # the offset's sigma: the harmonic vector's tangential error, its
+        # radial one (amp_sigma / amp) for an isotropic covariance
+        keep = torch.ones(b.fp.numel(), dtype=torch.bool)
+        if label != "white":
+            keep[[0, -1]] = False
+        fp, amp, off = (b.fp.reshape(-1)[keep], b.amp.reshape(-1)[keep],
+                        torch.rad2deg(b.offset_rad.reshape(-1)[keep]))
+        s_fp = b.fp_sigma.reshape(-1)[keep]
+        s_amp = b.amp_sigma.reshape(-1)[keep]
+        s_off = torch.rad2deg(s_amp / amp.clamp_min(1e-9))
+        worst = float(torch.stack([
+            (fp - FP_INJECTED).abs() / (6 * s_fp),
+            (amp - AMP_INJECTED).abs() / (6 * s_amp),
+            (off - OFFSET_INJECTED_DEG).abs() / (6 * s_off)]).max())
+        check(worst <= 1.0,
+              f"phase curve ({label}"
+              + ("" if label == "white" else
+                 f", the {int(keep.sum())} interior ones") + "): fp, A and "
+              "the offset within 6 sigma "
+              f"of {FP_INJECTED}, {AMP_INJECTED}, {OFFSET_INJECTED_DEG} deg "
+              f"(largest |err| / 6 sigma {worst:.3f}): fp "
+              f"{[round(v, 6) for v in fp.tolist()]} +- "
+              f"{[round(v, 6) for v in s_fp.tolist()]}, A "
+              f"{[round(v, 3) for v in amp.tolist()]} +- "
+              f"{[round(v, 3) for v in s_amp.tolist()]}, offset "
+              f"{[round(v, 1) for v in off.tolist()]} deg")
+
+
+def phase_reduce_cli(card: str, phase_curves: dict) -> int:
+    """The reduction CLIs at full width on the card. (a) ``etc.predict``
+    of the headline YAML: B1 once (noise flags off) and held against its
+    plain version, the report against the CPU's at rtol 1e-5. (b) The
+    uncut headline visit through ``run_visit --quicklook`` (B1 held on its
+    first chunk, the PNGs), then ``run_reduce`` three times (REDUCE_RUNS),
+    each timed in parts, its depths within max(6 sigma, 0.01) of the
+    injected ones, its fits held against the same fits on the CPU on the
+    spectra the card extracted (``compare_reports``), and
+    ``fit_white_ramp`` / ``fit_white_recte`` timed with their launch calls
+    counted. (c) The eclipse visit through ``run_reduce --mode eclipse
+    --detrend ramp`` (Fp/Fs within 6 sigma of the injected), and
+    ``fit_phase_curve`` on phase 7's phase-curve curves (fp, A and the
+    offset within 6 sigma; card against CPU). Returns B1's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import importlib.util
+
+    import wayne_tpu_torch.reduction as red
+    from wayne_tpu_torch import diagnostics, etc, run_visit
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.pytree import tree_map
+    from wayne_tpu_torch.run_reduce import compare_reports
+
+    launches = 0
+    print("phase 10: the reduction CLIs at full width")
+
+    # (a) the exposure-time calculator
+    cfg = load_yaml(HEADLINE)
+    ro.exposure_readout.launches = 0
+    (rep, wall), recorded = recorded_readout(
+        lambda: _synced(lambda: etc.predict(cfg)))
+    b1 = ro.exposure_readout.launches
+    launches += b1
+    _, again = _synced(lambda: etc.predict(cfg))
+    t0 = time.perf_counter()
+    cpu = etc.predict(cfg, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    gaps = {}
+    for f in dataclasses.fields(rep):
+        a, b = getattr(rep, f.name), getattr(cpu, f.name)
+        if isinstance(a, float) or (a and isinstance(a, list)
+                                    and isinstance(a[0], float)):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            gaps[f.name] = float(np.max(np.abs(a - b) / np.maximum(
+                np.abs(b), 1e-30)))
+        else:
+            gaps[f.name] = 0.0 if a == b else math.inf
+    check(b1 == 1 and max(gaps.values()) <= 1e-5,
+          f"phase 10a: etc.predict of {os.path.relpath(HEADLINE, HERE)} "
+          f"(512^2, NSAMP {cfg.nsamp}): {b1} B1 launch (noise flags off); "
+          f"card = CPU within rtol 1e-5 (largest "
+          f"{max(gaps, key=gaps.get)} {max(gaps.values()):.3g}); "
+          + rep.summary().replace("\n", "; "))
+    print(f"timing [{card}]: etc.predict {wall:.3f} s first call, "
+          f"{again:.3f} s second; {t_cpu:.3f} s on the CPU")
+    hold_recorded(ro, recorded, "phase 10a", "etc.predict's exposure")
+    del recorded
+
+    # (b) the uncut headline visit: run_visit --quicklook, run_reduce x 3.
+    # The PNGs need matplotlib; where it is not installed, the quicklook's
+    # read-back and reduction run on the card without the drawing.
+    plots = importlib.util.find_spec("matplotlib") is not None
+    obs = Observation(cfg)
+    n_exp = obs.plan.n_exposures
+    fit_calls = {}
+    with tempfile.TemporaryDirectory() as d:
+        visit = os.path.join(d, "visit")
+        ro.exposure_readout.launches = 0
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            (rc, wall), recorded = recorded_readout(lambda: _synced(
+                lambda: run_visit.main(
+                    ["-p", HEADLINE, "-o", visit, "--chunk", str(CHUNK)]
+                    + (["--quicklook"] if plots else []))))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        n_files = len([f for f in os.listdir(visit)
+                       if f.endswith("_ima.fits")])
+        check(rc == 0 and n_files == n_exp
+              and b1 == math.ceil(n_exp / CHUNK) + 1,
+              f"phase 10b: run_visit{' --quicklook' * plots} of the uncut "
+              f"visit: {n_files} ima files, {b1} B1 launches "
+              f"({math.ceil(n_exp / CHUNK)} chunks + the direct image) in "
+              f"{wall:.3f} s")
+        if plots:
+            pngs = [f for f in ("exposure0.png", "visit_lightcurve.png")
+                    if os.path.getsize(os.path.join(visit, f)) > 10_000]
+            check(len(pngs) == 2, f"quicklooks {' and '.join(pngs)}")
+        else:
+            reads, t_read = _synced(lambda: run_visit.read_back(obs, visit))
+            (rv, _), t_red = _synced(
+                lambda: diagnostics.quicklook_curves(obs, reads))
+            check(tuple(reads.shape) == (n_exp, cfg.nsamp + 1, cfg.subarray,
+                                         cfg.subarray)
+                  and bool(torch.isfinite(rv.white_lc).all())
+                  and tuple(rv.channel_lc.shape) == (n_exp, 8),
+                  f"matplotlib is not installed here, so no PNG is drawn: "
+                  f"the quicklook's read-back ({t_read:.3f} s, "
+                  f"{reads.nbytes / 1e9:.2f} GB) and its reduce_visit on "
+                  f"the card ({t_red:.3f} s) ran, curves finite")
+            del reads, rv
+        hold_recorded(ro, recorded, "phase 10b", "generate()'s first chunk")
+        del recorded
+
+        real_fits = {k: getattr(red, k)
+                     for k in ("fit_white_ramp", "fit_white_recte")}
+
+        def keep(name):    # the card's calls (not the replays'), timed
+            def call(*a, **kw):
+                if not a[0].is_cuda:
+                    return real_fits[name](*a, **kw)
+                out, wall = _synced(lambda: real_fits[name](*a, **kw))
+                fit_calls[name] = (a, kw, wall)
+                return out
+            return call
+
+        for name in real_fits:
+            setattr(red, name, keep(name))
+        try:
+            for label, extra in REDUCE_RUNS:
+                args = ["-d", visit, "-p", HEADLINE, "-o",
+                        os.path.join(d, f"{label}.json"), "--save-spectra",
+                        *extra, *(["--plot"] if plots and label ==
+                                  "divide-white" else [])]
+                report, extracted, _ = _reduce_cli(args, label, card)
+                _within_6_sigma(report, label)
+                cpu = _replay_on_cpu(args, extracted, label)
+                gaps = compare_reports(report, cpu)
+                check(not gaps, f"run_reduce {label}: the card's report = "
+                      f"the CPU's fits of the same spectra within the "
+                      f"CPU tests' bars ({len(gaps)} gaps: {gaps[:4]})")
+                if label == "divide-white":
+                    check(report["sky_fit"]["components"][0] == "constant"
+                          and len(report["channel_lc"]) == n_exp
+                          and (not plots or os.path.getsize(os.path.join(
+                              d, "divide-white.png")) > 10_000),
+                          "the sky fit and the --save-lc curves in the "
+                          "report" + (", the --plot quicklook" if plots
+                                      else ""))
+        finally:
+            for name, fn in real_fits.items():
+                setattr(red, name, fn)
+
+    # the white fits: the card's time in the CLI runs, the launch calls of
+    # the same calls. Their loops have fixed counts, so the calls are
+    # a + b n_iter exactly: traces at 2, 4 and 6 steps give a and b (the
+    # three must lie on one line), in a fraction of a full trace's time.
+    a, kw, _ = fit_calls["fit_white_ramp"]
+    plain = dict(kw, fit_geometry=False, clip_sigma=None)
+    _, t_plain = _synced(lambda: red.fit_white_ramp(*a, **plain))
+    fit_calls["fit_white_ramp plain"] = (a, plain, t_plain)
+    for label, name, n_iter in (
+            ("fit_white_ramp", "fit_white_ramp plain", 60),
+            ("fit_white_ramp (fit_geometry, clip_sigma 5)",
+             "fit_white_ramp", 60),
+            ("fit_white_recte", "fit_white_recte", 80)):
+        fa, fkw, wall = fit_calls[name]
+        fit = red.fit_white_recte if "recte" in name else red.fit_white_ramp
+        t0 = time.perf_counter()
+        counts = [kernels_in(lambda: fit(*fa, **dict(fkw, n_iter=k)),
+                             warmup=False) for k in (2, 4, 6)]
+        per_step = (counts[1] - counts[0]) // 2
+        calls = counts[0] + per_step * (n_iter - 2)
+        check(counts[2] - counts[1] == counts[1] - counts[0] > 0,
+              f"{label}: launch calls at 2, 4 and 6 steps {counts} on one "
+              f"line ({per_step} a step)")
+        print(f"timing [{card}]: {label} on the visit's white curve "
+              f"({n_exp} exposures, {n_iter} steps): {wall * 1e3:.1f} ms, "
+              f"{calls} kernel launch calls ({wall * 1e6 / calls:.1f} us "
+              f"each; traced in {time.perf_counter() - t0:.1f} s)")
+    del fit_calls
+
+    # (c) the eclipse visit through run_reduce, the phase curve's fit
+    del obs
+    ecl = load_yaml(ECLIPSE)
+    obs = Observation(ecl)
+    with tempfile.TemporaryDirectory() as d:
+        visit = os.path.join(d, "visit")
+        ro.exposure_readout.launches = 0
+        paths, wall = _synced(lambda: obs.generate(
+            visit, chunk=CHUNK, progress=lambda s: None))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        n = obs.plan.n_exposures
+        check(len(paths) == n and b1 == math.ceil(n / CHUNK) + 1,
+              f"phase 10c: generate() of {os.path.relpath(ECLIPSE, HERE)}: "
+              f"{len(paths)} ima files, {b1} B1 launches, {wall:.3f} s")
+        del obs
+        args = ["-d", visit, "-p", ECLIPSE, "-o",
+                os.path.join(d, "eclipse.json"), "--mode", "eclipse",
+                "--detrend", "ramp", "--save-spectra"]
+        report, extracted, _ = _reduce_cli(args, "--mode eclipse", card)
+        w = report["white_ramp_fit"]
+        check(abs(w["fp_over_fs"] - FP_INJECTED) <= 6.0 * w["fp_sigma"],
+              f"eclipse: white Fp/Fs {w['fp_over_fs']:.6f} +- "
+              f"{w['fp_sigma']:.6f} within 6 sigma of the injected "
+              f"{FP_INJECTED}; channels "
+              + ", ".join(f"{c['fp_over_fs']:.5f}"
+                          for c in report["channels"]))
+        cpu = _replay_on_cpu(args, extracted, "--mode eclipse")
+        gaps = compare_reports(report, cpu)
+        check(not gaps, f"run_reduce --mode eclipse: card = CPU fits "
+              f"within the bars ({len(gaps)} gaps: {gaps[:4]})")
+
+    _phase_curve_fits(phase_curves, card)
+    print(f"phase 10: {launches} B1 launches")
+    return launches
+
+
+def partial_run(only: set, card: str) -> int:
+    """Phases 9 and 10 alone (``--phases``); phase 10 then simulates the
+    phase-curve visit itself. Prints no result lines."""
+    import torch
+
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+
+    if 9 in only:
+        phase_reduction(card)
+    if 10 in only:
+        obs = Observation(load_yaml(PHASE))
+        res = obs.simulate(chunk=CHUNK)
+        torch.cuda.synchronize()
+        curves = phase_curve_curves(obs, res, card)
+        del obs, res
+        phase_reduce_cli(card, curves)
+    check("jax" not in sys.modules, "jax was not imported")
+    print(f"partial run of phases {sorted(only)}: no result lines")
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    # ``--phases 9,10`` runs only those phases (and the build), for work on
+    # one phase; without it every phase runs and the result lines print
+    only = (None if "--phases" not in argv else
+            {int(p) for p in argv[argv.index("--phases") + 1].split(",")})
     if not os.path.isdir(os.path.join(HERE, "wayne_tpu_torch")):
         print("chip_smoke.py: the wayne_tpu_torch package is not beside "
               "this script; run it from a checkout of the repository",
@@ -2072,6 +2570,8 @@ def main() -> int:
     ro.build(verbose=True)
     print(f"built {os.path.relpath(ro.library_path(), HERE)} in "
           f"{time.time() - t0:.1f} s")
+    if only is not None:
+        return partial_run(only, card)
     cfg, obs = headline_observation()
     whole, args = phase_kernel(cfg, obs, card)
     launches, errs, recorded = phase_main_path(cfg, obs, card)
@@ -2086,7 +2586,8 @@ def main() -> int:
     launches += full_b1
     per_read["read_step_banded"] += full_b2
     whole["max_abs_err"] = max(whole["max_abs_err"], *full_errs)
-    launches += phase_eclipse_and_program(card)
+    b1, phase_curves = phase_eclipse_and_program(card)
+    launches += b1
     exact, exact_launches = phase_exact(args, recorded, card)
     del args, recorded
     launches += exact_launches["exposure_readout"]
@@ -2095,6 +2596,7 @@ def main() -> int:
     del full
     launches += phase_compat(card)
     launches += phase_reduction(card)
+    launches += phase_reduce_cli(card, phase_curves)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

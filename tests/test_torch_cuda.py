@@ -749,3 +749,179 @@ def test_recovered_labels_on_the_card_match_cpu(card, tmp_path):
             1 for e in prof.profiler.kineto_results.events()
             if re.match(r"cu(da)?Launch\w*Kernel", e.name())))
     assert counts[0] == counts[1] > 0, counts
+
+
+# --- the white-light fits, run_reduce and the ETC (no kernel of their own)
+
+
+_ORBIT_S = 95.47 * 60.0                 # HST orbital period
+
+
+def _fit_inputs(kind, seed=2):
+    """(light curve(s), mid-times, orbit, ld) on the CPU, made with the
+    port's own models: a transit x the hook trend (5 orbits of 14
+    exposures), with ``kind`` "recte"
+    the RECTE ramp instead, with "geometry" a shifted, wider,
+    lower-inclination ephemeris than the fit's, with
+    "clip" two outliers, with "eclipse" 4 channel curves over the
+    secondary eclipse, with "phase" 4 channel curves over a whole
+    planetary orbit."""
+    from wayne_tpu_torch.ops import recte
+    from wayne_tpu_torch.ops.kepler import (
+        OrbitParams, orbital_phase_angle, projected_separation)
+    from wayne_tpu_torch.ops.transit import (
+        eclipse_visibility, transit_depth_curve)
+
+    period = 0.813475 * 86400.0
+    # the geometry fit needs the transit's middle in an orbit's window
+    t0 = 7088.0 if kind == "geometry" else 9700.0
+    orbit = OrbitParams.create(period, t0, 4.855, np.deg2rad(82.1))
+    ld = torch.tensor([0.65, -0.25, 0.45, -0.2])
+    rng = np.random.default_rng(seed)
+    if kind in ("eclipse", "phase"):
+        if kind == "eclipse":
+            c = t0 + period / 2.0
+            t = np.linspace(c - 3 * 3600.0, c + 3 * 3600.0, 60)
+        else:
+            t = np.linspace(0.0, period, 240)
+        t = torch.from_numpy(t.astype(np.float32))
+        z, front = projected_separation(t, orbit)
+        vis = eclipse_visibility(z, front, torch.tensor(0.1595))
+        phi = orbital_phase_angle(t, orbit)
+        fp = torch.tensor([4e-4, 8e-4, 1.2e-3, 1.5e-3])[:, None]
+        mod = (1.0 if kind == "eclipse"
+               else 1.0 - 0.6 * 0.5 * (1.0 - torch.cos(phi + 0.3)))
+        lc = (1.0 + fp * mod * vis).T * (1.0 + 1e-4 * torch.from_numpy(
+            rng.standard_normal((t.numel(), 4)).astype(np.float32)))
+        return lc, t, orbit, ld
+    t = np.array([k * _ORBIT_S + 60.0 + i * 200.0 for k in range(5)
+                  for i in range(14)], np.float32)
+    t_orb = (t - 60.0) % _ORBIT_S + 60.0
+    truth = orbit
+    if kind == "geometry":
+        truth = OrbitParams.create(period, t0 + 90.0, 4.855 * 1.04,
+                                   np.deg2rad(81.7))
+    z, front = projected_separation(torch.from_numpy(t), truth)
+    tr = (1.0 - (1.0 - transit_depth_curve(z, torch.tensor(0.1595), ld,
+                                           32)) * front).numpy()
+    if kind == "recte":
+        sys_ = recte.white_ramp(450.0, torch.from_numpy(t - 50.0), 100.0,
+                                f0_s=0.3, f0_f=0.6).numpy()
+    else:
+        amp = np.where(t < _ORBIT_S, 0.006, 0.003)
+        sys_ = 1.0 - amp * np.exp(-t_orb / 300.0)
+    lc = tr * sys_ * (1.0 - 0.01 / 86400.0 * (t - t[0])) * (
+        1.0 + 1e-4 * rng.standard_normal(t.size))
+    if kind == "clip":
+        lc[5] *= 1.006
+        lc[40] *= 1.004
+    return (torch.from_numpy(lc.astype(np.float32)), torch.from_numpy(t),
+            orbit, ld)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ramp", "geometry", "clip", "recte",
+                                  "eclipse", "phase"])
+def test_white_fits_on_the_card_match_cpu(card, kind):
+    """fit_white_ramp (plain; fit_geometry; clip_sigma on outliers),
+    fit_white_recte, fit_eclipse_depths and fit_phase_curve on the card
+    against the CPU on the same curves, at the CPU tests' bars: depths
+    within max(1e-5, 0.01 sigma) (the phase fit's as in
+    tests/test_torch_sky_phase_fits.py::_assert_phase), sigmas rtol 1e-3,
+    the clip weights identical."""
+    from wayne_tpu_torch import reduction as red
+    from wayne_tpu_torch.pytree import tree_map
+
+    lc, t, orbit, ld = _fit_inputs(kind)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        on = (lambda x: x.to(dev))
+        args = (on(lc), on(t), tree_map(on, orbit))
+        if kind in ("ramp", "geometry", "clip"):
+            kw = {"ramp": {}, "geometry": dict(fit_geometry=True),
+                  "clip": dict(clip_sigma=4.0)}[kind]
+            out[dev] = red.fit_white_ramp(*args, on(ld), 0.15, **kw)
+        elif kind == "recte":
+            out[dev] = red.fit_white_recte(*args, on(ld), 0.15,
+                                           rate_e_s=450.0, exptime_s=100.0)
+        elif kind == "eclipse":
+            out[dev] = red.fit_eclipse_depths(*args, 0.1595)
+        else:
+            out[dev] = red.fit_phase_curve(*args, 0.1595)
+    got, want = (tree_map(lambda x: x.cpu(), out[d]) if not isinstance(
+        out[d], tuple) else tuple(x.cpu() for x in out[d])
+        for d in ("cuda", "cpu"))
+    if kind == "eclipse":
+        (fp_g, sig_g), (fp_w, sig_w) = got, want
+        assert bool(((fp_g - fp_w).abs()
+                     <= torch.clamp_min(0.01 * sig_w, 1e-5)).all())
+        torch.testing.assert_close(sig_g, sig_w, rtol=1e-3, atol=0)
+    elif kind == "phase":
+        fp = want.fp.abs()
+        s_off = want.amp_sigma / want.amp.clamp_min(1e-9)
+        for k, bar in (
+                ("fp", torch.clamp_min(0.1 * want.fp_sigma, 1e-5)),
+                ("amp", torch.maximum(0.1 * want.amp_sigma, 3e-5 / fp)),
+                ("offset_rad", torch.maximum(
+                    0.1 * s_off, 2e-5 / (want.amp * fp)))):
+            assert bool(((getattr(got, k) - getattr(want, k)).abs()
+                         <= bar).all()), k
+        torch.testing.assert_close(got.fp_sigma, want.fp_sigma, rtol=1e-3,
+                                   atol=0)
+        rel = (got.amp_sigma / want.amp_sigma - 1.0).abs()
+        assert bool((rel <= 1e-3 + 0.2 * want.fp_sigma
+                     / want.fp.abs()).all()), rel
+    else:
+        bar = max(1e-5, 0.01 * float(want.rp_sigma))
+        assert abs(float(got.rp) - float(want.rp)) <= bar
+        torch.testing.assert_close(got.rp_sigma, want.rp_sigma, rtol=1e-3,
+                                   atol=0)
+        if kind != "recte":
+            assert torch.equal(got.weights, want.weights)
+        if kind == "clip":
+            assert got.weights[[5, 40]].tolist() == [0.0, 0.0]
+
+
+@pytest.mark.cuda
+def test_run_reduce_and_etc_on_the_card_match_cpu(card, tmp_path):
+    """run_reduce on the card against --cpu on the same files (divide-white;
+    optimal extraction without detrending), compared with compare_reports
+    (the white fits card against CPU: test_white_fits_on_the_card_match_cpu
+    and chip_smoke.py phase 10, on visits that constrain them);
+    etc.predict on the card against the CPU at rtol 1e-5, the background
+    within 4 ulps of the peak charge (one B1 launch, the noise flags
+    off)."""
+    import json
+
+    from wayne_tpu_torch.etc import predict
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.run_reduce import compare_reports
+    from wayne_tpu_torch.run_reduce import main as run_reduce
+
+    yml, obs, paths = _loop_visit(tmp_path)
+    for flags in ([], ["--detrend", "none", "--extract", "optimal"]):
+        reports = []
+        for extra in ([], ["--cpu"]):
+            out = str(tmp_path / f"r{len(extra)}.json")
+            assert run_reduce(["-d", str(tmp_path / "visit"), "-p", yml,
+                               "-o", out, "--n-chan", "4", *flags,
+                               *extra]) == 0
+            with open(out) as fh:
+                reports.append(json.load(fh))
+        assert compare_reports(reports[1], reports[0]) == []
+
+    cfg = config_from_dict(TINY)
+    ro.exposure_readout.launches = 0
+    got = predict(cfg)
+    assert ro.exposure_readout.launches == 1
+    want = predict(cfg, device="cpu")
+    ulp = float(np.spacing(np.float32(max(want.peak_e_per_read))))
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "background_e_per_px":   # two charges' difference
+            assert abs(a - b) <= 4.0 * ulp, (a, b)
+        elif isinstance(b, float) or (isinstance(b, list) and b
+                                      and isinstance(b[0], float)):
+            np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=f.name)
+        else:
+            assert a == b, f.name

@@ -48,7 +48,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.program",
                      "wayne_tpu_torch.run_program",
                      "wayne_tpu_torch.calwf3",
-                     "wayne_tpu_torch.run_calwf3"):
+                     "wayne_tpu_torch.run_calwf3",
+                     "wayne_tpu_torch.run_reduce",
+                     "wayne_tpu_torch.etc",
+                     "wayne_tpu_torch.diagnostics",
+                     "wayne_tpu_torch.utils.cli"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -96,6 +100,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         run_calwf3(["-d", str(tmp_path), "-p", str(yml)])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_program(["-p", str(yml), "-o", str(tmp_path / "prog")])
+    from wayne_tpu_torch.etc import main as etc, predict
+    from wayne_tpu_torch.run_reduce import extract_from_files
+    from wayne_tpu_torch.run_reduce import main as run_reduce
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_reduce(["-d", str(tmp_path), "-p", str(yml)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_from_files([], 2.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        etc(["-p", str(yml)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        predict(cfg)
     from wayne_tpu_torch.compat import ExposureGenerator, run
     with pytest.raises(RuntimeError, match="CUDA"):
         ExposureGenerator(subarray=64, n_lambda=16, nsamp=2)

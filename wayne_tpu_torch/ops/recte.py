@@ -110,15 +110,18 @@ def white_ramp(rate_e_s, exp_start_s: torch.Tensor, exptime_s: float,
     curve at a representative illuminated-pixel rate (scalar or (N,))."""
     p = params
     t = torch.as_tensor(exp_start_s, dtype=torch.float32)
+    # one trailing axis of length 1: forward-mode autodiff gives a 0-dim
+    # float32 tensor times a Python float a float64 tangent, and the fits
+    # differentiate this scan in float32, as the JAX package does
     f = torch.as_tensor(rate_e_s, dtype=torch.float32,
-                        device=t.device).expand(t.shape)
-    gaps = _exposure_gaps(t, exptime_s)
-    e_s0 = torch.as_tensor(f0_s, dtype=torch.float32, device=t.device) \
-        * p.n_trap_s
-    e_f0 = torch.as_tensor(f0_f, dtype=torch.float32, device=t.device) \
-        * p.n_trap_f
+                        device=t.device).expand(t.shape)[:, None]
+    gaps = _exposure_gaps(t, exptime_s)[:, None]
+    e_s0 = torch.as_tensor(f0_s, dtype=torch.float32,
+                           device=t.device).reshape(1) * p.n_trap_s
+    e_f0 = torch.as_tensor(f0_f, dtype=torch.float32,
+                           device=t.device).reshape(1) * p.n_trap_f
     _, _, deficit = _trap_scan(p, exptime_s, e_s0, e_f0, f, gaps)
-    return 1.0 - deficit / torch.clamp_min(f * exptime_s, 1e-20)
+    return (1.0 - deficit / torch.clamp_min(f * exptime_s, 1e-20))[:, 0]
 
 
 def visit_trap_maps(scenes, tables, rcfg, fluence_stack: torch.Tensor):

@@ -21,30 +21,39 @@ the functions here take a leading batch axis instead:
     with autograd; every channel and realisation in one tensor program),
     :func:`common_mode_correct`, :func:`divide_white_fit_depths`,
     :func:`spectra_to_depths` (spectra (mc, n_exp, S)) and
-    :func:`constrained_mask`.
+    :func:`constrained_mask`;
+  * the background and white-light systematics fits:
+    :func:`fit_sky_model` (every exposure in one solve),
+    :func:`fit_eclipse_depths`, :func:`fit_phase_curve`, and the
+    Levenberg-Marquardt fits :func:`fit_white_ramp` (with
+    :func:`orbit_phase` and :func:`ramp_detrend`) and
+    :func:`fit_white_recte`.
 
 Nothing waits for the host: budgets come from static shapes, linear
 solves use ``solve_ex`` (no error check), and the per-hit sums of the
 ensemble path are pairwise masks, not scatters. Medians average the two
 middle values of an even count, as ``jnp.median`` does (:func:`_median`),
-not the lower one as ``torch.median``.
-
-The white-light systematics fits (``fit_white_ramp``, ``fit_white_recte``,
-``fit_eclipse_depths``, ``fit_phase_curve``, ``fit_sky_model``) and
-``run_reduce`` come with ROADMAP Queue A item 8b.
+not the lower one as ``torch.median``. A clip that a fit differentiates
+is written ``minimum(maximum(x, lo), hi)`` (:func:`_clip`): its derivative
+at a bound is 1/2, as ``jnp.clip``'s, where ``torch.clamp``'s is 1.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from wayne_tpu_torch.calibration import quadrant_map
-from wayne_tpu_torch.ops.kepler import OrbitParams, projected_separation
-from wayne_tpu_torch.ops.transit import transit_depth_curve
+from wayne_tpu_torch.ops.kepler import (
+    OrbitParams, orbital_phase_angle, projected_separation,
+)
+from wayne_tpu_torch.ops.recte import white_ramp
+from wayne_tpu_torch.ops.transit import eclipse_visibility, transit_depth_curve
 
 # DQ bits the repair consumes (io.ima conventions): cosmic ray (8192),
 # saturation (256), and the static classes (hot 16, dead 4, IR blob 512,
@@ -1203,3 +1212,523 @@ def constrained_mask(depth, sigma, *, sigma_floor: float = 0.05,
     if bounds is not None:
         ok = ok & (depth > bounds[0]) & (depth < bounds[1])
     return ok
+
+
+# ---------------------------------------------------------------------------
+# Background and white-light systematics fits
+# ---------------------------------------------------------------------------
+
+def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip`` with its derivative: ``minimum(maximum(x, lo), hi)``
+    splits a tie at either bound, 1/2 to each side, where ``torch.clamp``
+    gives 1. The fits differentiate through these clips."""
+    lo = torch.tensor(lo, dtype=x.dtype, device=x.device)
+    hi = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def fit_sky_model(nets_e: torch.Tensor, comps: torch.Tensor,
+                  sky_mask: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-exposure least-squares fit of sky-component weights on the
+    sky-only pixels (the Iraclis/aXe background), every exposure in one
+    batched solve: each exposure's background is a weighted sum of
+    component frames, fitted off the trace and subtracted over the whole
+    frame.
+
+    Args:
+      nets_e: (n_exp, S, S) background-inclusive net frames.
+      comps: (K, S, S) component patterns.
+      sky_mask: (S, S) 1 = sky-only pixel, 0 = trace or contaminated.
+
+    Returns (weights (n_exp, K), model (n_exp, S, S)). One robust refit
+    drops the pixels whose first residual lies more than 5 x the masked
+    mean absolute deviation from the masked mean residual (the JAX
+    package's "MAD", centred on a mean, not a median). fp32 normal
+    equations with TF32 off, a relative Tikhonov floor, ``solve_ex``.
+    """
+    y = nets_e.to(torch.float32)
+    n_exp, S, _ = y.shape
+    dev = y.device
+    A = torch.as_tensor(comps, dtype=torch.float32, device=dev)
+    A = A.reshape(A.shape[0], -1)                                # (K, P)
+    m0 = torch.as_tensor(sky_mask, dtype=torch.float32,
+                         device=dev).reshape(-1)                 # (P,)
+    yf = y.reshape(n_exp, -1)                                    # (n_exp, P)
+    eye = torch.eye(A.shape[0], dtype=torch.float32, device=dev)
+
+    def solve(m):                       # m: (P,) shared or (n_exp, P)
+        Am = A * m[..., None, :]
+        G = Am @ A.T                                             # (..., K, K)
+        b = torch.einsum("kp,ep->ek" if m.dim() == 1 else "ekp,ep->ek",
+                         Am, yf)
+        G = G + 1e-6 * torch.diag_embed(torch.diagonal(
+            G, dim1=-2, dim2=-1)) + 1e-12 * eye
+        return torch.linalg.solve_ex(G, b[..., None])[0][..., 0]
+
+    w = solve(m0)
+    r = yf - w @ A
+    n = torch.clamp_min(torch.sum(m0), 1.0)
+    med = torch.sum(r * m0, dim=-1, keepdim=True) / n
+    mad = torch.sum(torch.abs(r - med) * m0, dim=-1, keepdim=True) / n
+    m1 = m0 * (torch.abs(r - med) < 5.0 * torch.clamp_min(mad, 1e-3))
+    w = solve(m1)
+    return w, (w @ A).reshape(n_exp, S, S)
+
+
+def fit_eclipse_depths(channel_lc: torch.Tensor, exp_mid_s: torch.Tensor,
+                       orbit: OrbitParams, rp_over_rs,
+                       weights: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel eclipse depth Fp/Fs: F = c (1 + fp vis(t)) is linear in
+    (c, c fp), so each channel is a 2x2 weighted least squares on the
+    uniform-disk visibility at the SCALAR geometric radius
+    ``rp_over_rs``. In-transit epochs are weighted out; ``weights``
+    (n_exp,) (RampFit.weights) multiplies in. Explicit float32 sums, as in
+    the JAX package.
+
+    Args:
+      channel_lc: (n_exp, n_chan) curves normalised to any baseline.
+    Returns (fp_hat (n_chan,), fp_sigma (n_chan,)), sigma from the
+    residual scatter and the normal equations' covariance.
+    """
+    lc = channel_lc.to(torch.float32)
+    z, in_front = projected_separation(exp_mid_s, orbit)
+    rp = torch.as_tensor(rp_over_rs, dtype=torch.float32, device=lc.device)
+    vis = eclipse_visibility(z, in_front, rp)
+    w = out_of_transit_mask(exp_mid_s, orbit).to(lc.dtype)
+    if weights is not None:
+        w = w * torch.as_tensor(weights, dtype=lc.dtype, device=lc.device)
+    n = torch.sum(w)
+    s1 = torch.sum(w * vis)
+    s2 = torch.sum(w * vis * vis)
+    y0 = torch.sum(w[:, None] * lc, dim=0)                      # (n_chan,)
+    y1 = torch.sum((w * vis)[:, None] * lc, dim=0)
+    det = n * s2 - s1 * s1
+    a0 = (s2 * y0 - s1 * y1) / det
+    a1 = (n * y1 - s1 * y0) / det
+    fp = a1 / a0
+    model = a0[None, :] + a1[None, :] * vis[:, None]
+    resid = (lc - model) * w[:, None]
+    noise_var = torch.sum(resid ** 2, dim=0) / torch.clamp_min(n - 2.0, 1.0)
+    cov00 = s2 / det
+    cov11 = n / det
+    cov01 = -s1 / det
+    var_fp = noise_var * (cov11 / a0 ** 2
+                          + cov00 * (a1 / a0 ** 2) ** 2
+                          - 2.0 * cov01 * a1 / a0 ** 3)
+    return fp, torch.sqrt(torch.clamp_min(var_fp, 0.0))
+
+
+@dataclass
+class PhaseFit:
+    """Outputs of :func:`fit_phase_curve` (per channel)."""
+
+    fp: torch.Tensor            # dayside eclipse depth Fp/Fs
+    fp_sigma: torch.Tensor      # its 1-sigma (delta method)
+    amp: torch.Tensor           # thermal phase amplitude A in [0, 2]
+    amp_sigma: torch.Tensor     # its 1-sigma (delta method, unclipped:
+    #                             huge when A is a clamp artifact)
+    offset_rad: torch.Tensor    # hot-spot offset (+ = eastward)
+    slope: torch.Tensor         # fitted linear baseline (fraction over
+    #                             the visit half-span)
+    chi2: torch.Tensor          # weighted residual sum of squares
+
+
+def _phase_unpack(av: torch.Tensor):
+    """(fp, r, offset) of one channel's harmonic coefficients (5,),
+    UNCLIPPED: the delta-method sigma differentiates through it."""
+    b = av[2:] / torch.clamp_min(av[0], 1e-9)
+    r = torch.sqrt(b[1] ** 2 + b[2] ** 2 + 1e-20)
+    return b[0] + r, r, torch.atan2(-b[2], b[1])
+
+
+def _phase_amp_raw(av: torch.Tensor) -> torch.Tensor:
+    fpv, rv, _ = _phase_unpack(av)
+    denom = torch.where(torch.abs(fpv) > 1e-9, fpv, 1e-9)
+    return 2.0 * rv / denom
+
+
+def fit_phase_curve(channel_lc: torch.Tensor, exp_mid_s: torch.Tensor,
+                    orbit: OrbitParams, rp_over_rs) -> PhaseFit:
+    """Closed-form thermal phase-curve fit per channel.
+
+    F = c (1 + fp [1 - A (1 - cos(phi + phi0)) / 2] vis(t)) plus a linear
+    time baseline is linear in five coefficients on the basis [1, t, vis,
+    vis cos phi, vis sin phi] (phi the true-anomaly phase angle, 0 at
+    mid-secondary); one 5x5 weighted least squares per channel, in-transit
+    epochs weighted out, fp32 with TF32 off and a relative ridge. fp_sigma
+    and amp_sigma come from the residual scatter through the delta method:
+    the gradient (``torch.func.grad``, one channel per ``vmap`` lane) of
+    the UNCLIPPED map from the coefficients, so a degenerate coverage keeps
+    its huge sigma while the reported fp and A are clamped to [-0.05, 0.5]
+    and [0, 2]. ``rp_over_rs`` is the SCALAR geometric radius.
+
+    ``channel_lc`` is (n_exp,) or (n_exp, n_chan), normalised to any
+    baseline (c absorbs it).
+    """
+    t = torch.as_tensor(exp_mid_s).to(torch.float32)
+    dev = t.device
+    lc = torch.as_tensor(channel_lc, device=dev).to(torch.float32)
+    squeeze = lc.dim() == 1
+    f = lc[:, None] if squeeze else lc                         # (n, m)
+    rp = torch.as_tensor(rp_over_rs, dtype=torch.float32, device=dev)
+    z, in_front = projected_separation(t, orbit)
+    vis = eclipse_visibility(z, in_front, rp)
+    phi = orbital_phase_angle(t, orbit)
+    w = out_of_transit_mask(t, orbit).to(torch.float32)        # (n,)
+
+    t_norm = ((t - t.mean())
+              / torch.clamp_min(0.5 * (t.max() - t.min()), 1e-9))
+    X = torch.stack([torch.ones_like(vis), t_norm, vis,
+                     vis * torch.cos(phi), vis * torch.sin(phi)], dim=1)
+    XtX = torch.einsum("ni,nj,n->ij", X, X, w)
+    XtY = torch.einsum("ni,nm,n->im", X, f, w)
+    ridge = 1e-7 * torch.diagonal(XtX).sum() / 5.0 + 1e-12
+    M = XtX + ridge * torch.eye(5, dtype=torch.float32, device=dev)
+    a = torch.linalg.solve_ex(M, XtY)[0]                       # (5, m)
+
+    fp_raw, r_harm, off = _phase_unpack(a)
+    fp = torch.clamp(fp_raw, -0.05, 0.5)
+    amp = torch.clamp(2.0 * r_harm / torch.clamp_min(fp, 1e-9), 0.0, 2.0)
+    slope = a[1] / torch.clamp_min(a[0], 1e-9)                 # (m,)
+
+    resid = (X @ a - f) * w[:, None]
+    dof = torch.clamp_min(torch.sum(w) - 5.0, 1.0)
+    noise_var = torch.sum(resid ** 2, dim=0) / dof             # (m,)
+    cov_u = torch.linalg.inv_ex(M)[0]                          # unit noise
+
+    def delta_sigma(fn):
+        g = torch.func.vmap(torch.func.grad(fn), in_dims=1)(a)  # (m, 5)
+        return torch.sqrt(torch.clamp_min(
+            noise_var * torch.einsum("mi,ij,mj->m", g, cov_u, g), 0.0))
+
+    fp_sigma = delta_sigma(lambda v: _phase_unpack(v)[0])
+    amp_sigma = delta_sigma(_phase_amp_raw)
+    chi2 = torch.sum(resid ** 2, dim=0)
+    out = PhaseFit(fp=fp, fp_sigma=fp_sigma, amp=amp, amp_sigma=amp_sigma,
+                   offset_rad=off, slope=slope, chi2=chi2)
+    if squeeze:
+        out = PhaseFit(**{k.name: getattr(out, k.name)[0]
+                          for k in dataclasses.fields(out)})
+    return out
+
+
+def orbit_phase(exp_mid_s: torch.Tensor, gap_s: float = 1200.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-exposure (time since orbit start, first-orbit mask) from the
+    exposure timeline alone: any gap above ``gap_s`` starts a new HST
+    orbit, whose clock zero is its first exposure. One ``cummax``."""
+    t = torch.as_tensor(exp_mid_s)
+    n = t.shape[0]
+    gap = torch.diff(t, prepend=t[:1])
+    new_orbit = gap > gap_s
+    orbit_id = torch.cumsum(new_orbit.to(torch.int32), dim=0)
+    first = torch.arange(n, device=t.device) == 0
+    marks = torch.where(new_orbit | first, t, -math.inf)
+    return t - torch.cummax(marks, dim=0).values, orbit_id == 0
+
+
+def _with_value(r: torch.Tensor):
+    return r, r
+
+
+def _lm_normal_eqs(resid, theta: torch.Tensor):
+    """(J^T J, J^T r) of a residual function at ``theta``: the Jacobian
+    (n, nd) by ``torch.func.jacfwd``, which hands back the residual as its
+    auxiliary output; fp32 contractions with TF32 off."""
+    J, r = torch.func.jacfwd(lambda th: _with_value(resid(th)),
+                             has_aux=True)(theta)
+    return torch.einsum("ni,nj->ij", J, J), torch.einsum("ni,n->i", J, r)
+
+
+def _lm_minimize(resid, theta0: torch.Tensor, n_steps: int,
+                 lam0: float = 1e-3):
+    """Damped Levenberg-Marquardt with a fixed step count: each step
+    accepted or rejected by ``torch.where`` (a NaN chi^2 compares false, so
+    its step is rejected), lambda a 0-dim tensor; no host sync. Shared by
+    :func:`fit_white_ramp` and :func:`fit_white_recte`; batched over
+    starting points with ``torch.func.vmap``. Returns (theta, chi2)."""
+    nd = theta0.shape[0]
+    eye = torch.eye(nd, dtype=torch.float32, device=theta0.device)
+    theta = theta0
+    chi2 = torch.sum(resid(theta0) ** 2)
+    lam = torch.tensor(lam0, dtype=torch.float32, device=theta0.device)
+    for _ in range(n_steps):
+        JTJ, g = _lm_normal_eqs(resid, theta)
+        diag = torch.diagonal(JTJ)
+        ridge = 1e-7 * diag.sum() / nd + 1e-12
+        A = JTJ + lam * torch.diag_embed(diag) + ridge * eye
+        theta_new = theta - torch.linalg.solve_ex(A, g)[0]
+        chi2_new = torch.sum(resid(theta_new) ** 2)
+        ok = chi2_new < chi2
+        theta = torch.where(ok, theta_new, theta)
+        lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-8, 1e8)
+        chi2 = torch.where(ok, chi2_new, chi2)
+    return theta, chi2
+
+
+def ramp_transit_model(theta6: torch.Tensor, t_day: torch.Tensor,
+                       t_orb: torch.Tensor, firstf: torch.Tensor,
+                       z: torch.Tensor, in_front: torch.Tensor,
+                       ld: torch.Tensor, n_quad: int,
+                       vis: torch.Tensor | None = None):
+    """The white-light ramp x signal model of :func:`fit_white_ramp`:
+    theta6 = (c, depth, ra per day, rb, rb in orbit 1, log tau), tau
+    clipped to [30, 20000] s and the depth to its physical range (Rp/Rs
+    [0.01, 0.5], or Fp/Fs [-0.02, 0.1] on the eclipse visibility ``vis``).
+    Returns (model flux, systematic-only factor)."""
+    c, rp, ra, rb, rbf, log_tau = (theta6[0], theta6[1], theta6[2],
+                                   theta6[3], theta6[4], theta6[5])
+    tau = _clip(torch.exp(log_tau), 30.0, 20000.0)
+    amp = torch.where(firstf > 0.5, rbf, rb)
+    sys = (1.0 - ra * t_day) * (1.0 - amp * torch.exp(-t_orb / tau))
+    if vis is not None:
+        tr = 1.0 + _clip(rp, -0.02, 0.1) * vis
+    else:
+        f = transit_depth_curve(z, _clip(rp, 0.01, 0.5), ld, n_quad)
+        tr = 1.0 - (1.0 - f) * in_front
+    return c * sys * tr, sys
+
+
+@dataclass
+class RampFit:
+    """Joint white-light ramp + transit fit (:func:`fit_white_ramp`)."""
+
+    rp: torch.Tensor              # white depth: Rp/Rs, or Fp/Fs (eclipse)
+    rp_sigma: torch.Tensor        # its 1-sigma from the LM curvature
+    c: torch.Tensor               # out-of-transit flux normalisation
+    slope_per_day: torch.Tensor   # visit-long linear slope (frac/day)
+    hook_amp: torch.Tensor        # orbit-ramp amplitude (orbits >= 2)
+    hook_amp_first: torch.Tensor  # orbit-ramp amplitude in orbit 1
+    hook_tau_s: torch.Tensor      # orbit-ramp e-folding time (s)
+    template: torch.Tensor        # (n_exp,) fitted systematic (no c, no
+    #                               transit): divide it out of any curve
+    chi2: torch.Tensor            # sum of squared residuals at the fit
+    t0_offset_s: torch.Tensor     # fitted mid-transit shift (0 unless
+    #                               fit_geometry)
+    orbit: OrbitParams            # the orbit the fit used (t0, a/Rs and
+    #                               inclination FITTED with fit_geometry)
+    weights: torch.Tensor         # (n_exp,) robust keep mask: 0 on the
+    #                               exposures clip_sigma clipped
+
+
+def fit_white_ramp(white_lc: torch.Tensor, exp_mid_s: torch.Tensor,
+                   orbit: OrbitParams, ld, rp_init=0.15, *,
+                   gap_s: float = 1200.0, n_iter: int = 60,
+                   n_quad: int = 32, fit_geometry: bool = False,
+                   t0_window_s: float = 600.0, eclipse: bool = False,
+                   fp_init=1.5e-3, clip_sigma: float | None = None,
+                   clip_rounds: int = 4) -> RampFit:
+    """Fit the white curve as transit x instrument ramp (Iraclis):
+    F = c (1 - ra t) (1 - rb exp(-t_orb / tau)) T(t; rp), with its own ramp
+    amplitude in the first orbit; the orbit clocks come from
+    :func:`orbit_phase`. Levenberg-Marquardt (:func:`_lm_minimize`,
+    ``n_iter`` steps) on theta = (c, rp, ra per day, rb, rb first, log tau)
+    with ``jacfwd`` Jacobians through the occultation integral.
+
+    ``eclipse``: the signal is 1 + fp vis(t) at the geometric radius
+    ``rp_init`` (theta[1] = Fp/Fs from ``fp_init``); in-transit epochs are
+    left out of the fit. ``fit_geometry`` (transit only) frees (t0 offset
+    [s], a/Rs, cos i) after the 6-parameter fit: 13 dt0 seeds across
+    +-``t0_window_s``, each refined by a 25-step LM, all in one ``vmap``,
+    the best polished by ``n_iter`` more. ``clip_sigma``: each of
+    ``clip_rounds`` rounds zero-weights the single worst residual beyond
+    ``clip_sigma`` robust sigmas (1.4826 x the MAD of the baseline
+    residuals, NaN-skipping medians as ``jnp.nanmedian``) and refits.
+    """
+    lc = torch.as_tensor(white_lc).to(torch.float32)
+    dev = lc.device
+    t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
+    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+    t_orb, first = orbit_phase(t, gap_s)
+    firstf = first.to(torch.float32)
+    t_day = (t - t.mean()) / 86400.0
+    oot = out_of_transit_mask(t, orbit).to(torch.float32)
+    c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
+    ndim = 9 if fit_geometry else 6
+    z_fix, infr_fix = projected_separation(t, orbit)
+    rp_geom = torch.as_tensor(rp_init, dtype=torch.float32, device=dev)
+
+    def orbit_of(theta):
+        if theta.shape[0] == 6:
+            return orbit
+        return dataclasses.replace(
+            orbit, t0_s=orbit.t0_s + theta[6],
+            sma_rs=_clip(theta[7], 1.5, 50.0),
+            inc_rad=torch.arccos(_clip(theta[8], 0.0, 0.6)))
+
+    def model(theta):
+        if theta.shape[0] == 6:
+            z, in_front = z_fix, infr_fix
+        else:
+            z, in_front = projected_separation(t, orbit_of(theta))
+        vis = eclipse_visibility(z, in_front, rp_geom) if eclipse else None
+        return ramp_transit_model(theta[:6], t_day, t_orb, firstf, z,
+                                  in_front, ld, n_quad, vis)
+
+    # eclipse mode has no transit factor: in-transit epochs stay out
+    fit_mask = oot if eclipse else torch.ones_like(lc)
+
+    def resid(theta):
+        return (model(theta)[0] - lc) * fit_mask
+
+    if fit_geometry and eclipse:
+        raise ValueError("fit_geometry is a transit-mode feature "
+                         "(fit the ephemeris on a transit visit)")
+    rp0 = torch.as_tensor(fp_init if eclipse else rp_init,
+                          dtype=torch.float32, device=dev).reshape(())
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    theta0 = torch.stack([c0, rp0, f32(0.0), f32(2e-3), f32(4e-3),
+                          f32(math.log(250.0))])
+    # stage 1: the 6-parameter fit; the geometry's landscape is nonconvex
+    # from a cold start
+    theta, chi2 = _lm_minimize(resid, theta0, n_iter)
+    normal_eqs = partial(_lm_normal_eqs, resid)
+    if fit_geometry:
+        sma0 = torch.as_tensor(orbit.sma_rs, dtype=torch.float32,
+                               device=dev).reshape(())
+        cosi0 = torch.cos(torch.as_tensor(
+            orbit.inc_rad, dtype=torch.float32, device=dev)).reshape(())
+        dt0_grid = torch.linspace(-t0_window_s, t0_window_s, 13,
+                                  dtype=torch.float32, device=dev)
+
+        def seed_fit(dt0):
+            th = torch.cat([theta, torch.stack([dt0, sma0, cosi0])])
+            return _lm_minimize(resid, th, 25)
+
+        ths, c2s = torch.func.vmap(seed_fit)(dt0_grid)
+        theta = ths.index_select(0, torch.argmin(c2s).reshape(1))[0]
+        theta, chi2 = _lm_minimize(resid, theta, n_iter)
+
+    w_keep = torch.ones_like(lc)
+    if clip_sigma is not None:
+        # one exposure per round at most; the scale is the baseline
+        # residuals' robust scatter (out of eclipse and transit in eclipse
+        # mode), which an unmodelled in-transit feature cannot inflate
+        if eclipse:
+            vis0 = eclipse_visibility(z_fix, infr_fix, rp_geom)
+            scale_mask = (vis0 > 0.999).to(torch.float32) * fit_mask
+        else:
+            scale_mask = oot
+        idx = torch.arange(lc.shape[0], device=dev)
+        for _ in range(clip_rounds):
+            r = resid(theta)
+            kept = scale_mask * w_keep
+            r_oot = torch.where(kept > 0.0, r, math.nan)
+            med = _median(r_oot, 0, nan=True)
+            sig = 1.4826 * _median(torch.abs(r_oot - med), 0, nan=True)
+            sig = torch.maximum(
+                sig, 1e-9 * torch.clamp_min(torch.abs(c0), 1e-12))
+            dev_r = torch.abs(r - med) * w_keep   # clipped points stay out
+            hit = torch.amax(dev_r) > clip_sigma * sig   # NaN sig: False
+            w_keep = torch.where((idx == torch.argmax(dev_r)) & hit, 0.0,
+                                 w_keep)
+            wres = (lambda th, _w=w_keep: _w * resid(th))
+            theta, chi2 = _lm_minimize(wres, theta, n_iter)
+            normal_eqs = partial(_lm_normal_eqs, wres)
+
+    _, sys = model(theta)
+    JTJ, _ = normal_eqs(theta)
+    n = (torch.sum(w_keep * fit_mask) if clip_sigma is not None
+         else torch.sum(fit_mask))
+    noise_var = chi2 / torch.clamp_min(n - ndim, 1.0)
+    eye = torch.eye(ndim, dtype=torch.float32, device=dev)
+    cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
+    rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
+    depth = (torch.clamp(theta[1], -0.02, 0.1) if eclipse
+             else torch.clamp(theta[1], 0.01, 0.5))
+    return RampFit(rp=depth, rp_sigma=rp_sigma, c=theta[0],
+                   slope_per_day=theta[2], hook_amp=theta[3],
+                   hook_amp_first=theta[4],
+                   hook_tau_s=torch.clamp(torch.exp(theta[5]), 30.0, 20000.0),
+                   template=sys, chi2=chi2,
+                   t0_offset_s=theta[6] if fit_geometry else f32(0.0),
+                   orbit=orbit_of(theta), weights=w_keep)
+
+
+def ramp_detrend(channel_lc: torch.Tensor, ramp, exp_mid_s: torch.Tensor,
+                 orbit: OrbitParams) -> torch.Tensor:
+    """Divide a fitted systematic template (``ramp.template``, a RampFit or
+    RecteWhiteFit) out of channel curves (n_exp, n_chan) and re-normalise
+    each to its out-of-transit baseline."""
+    w = out_of_transit_mask(exp_mid_s, orbit).to(channel_lc.dtype)
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    corr = channel_lc / ramp.template[:, None]
+    base = torch.sum(corr * w[:, None], dim=0) / n
+    return corr / base[None, :]
+
+
+@dataclass
+class RecteWhiteFit:
+    """Physical RECTE white-light fit (:func:`fit_white_recte`)."""
+
+    rp: torch.Tensor              # white-light transit Rp/Rs
+    rp_sigma: torch.Tensor        # its 1-sigma from the LM curvature
+    c: torch.Tensor               # out-of-transit flux normalisation
+    slope_per_day: torch.Tensor   # visit-long linear slope (frac/day)
+    f0_s: torch.Tensor            # initial slow-trap fill in [0, 1]
+    f0_f: torch.Tensor            # initial fast-trap fill in [0, 1]
+    rate_scale: torch.Tensor      # multiplier on the supplied rate
+    template: torch.Tensor        # (n_exp,) fitted systematic: feed to
+    #                               ramp_detrend
+    chi2: torch.Tensor            # sum of squared residuals at the fit
+
+
+def fit_white_recte(white_lc: torch.Tensor, exp_mid_s: torch.Tensor,
+                    orbit: OrbitParams, ld, rp_init=0.15, *, rate_e_s,
+                    exptime_s: float, n_iter: int = 80,
+                    n_quad: int = 32) -> RecteWhiteFit:
+    """Fit the white curve as transit x the PHYSICAL two-trap RECTE ramp
+    (Zhou et al. 2017; :func:`ops.recte.white_ramp`) at an effective
+    illumination rate. theta = (c, rp, ra per day, logit f0_s, logit f0_f,
+    log rate_scale); Levenberg-Marquardt (:func:`_lm_minimize`) with
+    ``jacfwd`` through the trap loop over the exposures and the
+    occultation integral. ``rate_e_s``: the aperture's mean illuminated
+    rate (e-/s), calibrated by the fitted rate scale; ``exptime_s``: the
+    exposure time, exposure starts taken as mid - exptime / 2."""
+    lc = torch.as_tensor(white_lc).to(torch.float32)
+    dev = lc.device
+    t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
+    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+    starts = t - 0.5 * exptime_s
+    t_day = (t - t.mean()) / 86400.0
+    oot = out_of_transit_mask(t, orbit).to(torch.float32)
+    c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
+    z, in_front = projected_separation(t, orbit)
+    rate0 = torch.as_tensor(rate_e_s, dtype=torch.float32, device=dev)
+
+    def model(theta):
+        c, rp, ra, u_s, u_f, log_rs = (theta[0], theta[1], theta[2],
+                                       theta[3], theta[4], theta[5])
+        rate = rate0 * torch.exp(_clip(log_rs, -3.0, 3.0))
+        ramp = white_ramp(rate, starts, exptime_s, f0_s=torch.sigmoid(u_s),
+                          f0_f=torch.sigmoid(u_f))
+        sys = (1.0 - ra * t_day) * ramp
+        f = transit_depth_curve(z, _clip(rp, 0.01, 0.5), ld, n_quad)
+        tr = 1.0 - (1.0 - f) * in_front
+        return c * sys * tr, sys
+
+    def resid(theta):
+        return model(theta)[0] - lc
+
+    # the fills start mid-range (the sigmoid's gradient vanishes at the
+    # rails); the rate scale at the supplied estimate
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    theta0 = torch.stack([
+        c0, torch.as_tensor(rp_init, dtype=torch.float32,
+                            device=dev).reshape(()),
+        f32(0.0), f32(-1.5), f32(-1.5), f32(0.0)])
+    theta, chi2 = _lm_minimize(resid, theta0, n_iter)
+    _, sys = model(theta)
+    JTJ, _ = _lm_normal_eqs(resid, theta)
+    noise_var = chi2 / max(lc.shape[0] - 6, 1)
+    eye = torch.eye(6, dtype=torch.float32, device=dev)
+    cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
+    rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
+    return RecteWhiteFit(
+        rp=torch.clamp(theta[1], 0.01, 0.5), rp_sigma=rp_sigma,
+        c=theta[0], slope_per_day=theta[2],
+        f0_s=torch.sigmoid(theta[3]), f0_f=torch.sigmoid(theta[4]),
+        rate_scale=torch.exp(torch.clamp(theta[5], -3.0, 3.0)),
+        template=sys, chi2=chi2)

@@ -6,6 +6,7 @@ Usage:
     python -m wayne_tpu_torch.run_visit -p pars.yml --cpu   # plain CPU path
     python -m wayne_tpu_torch.run_visit -p pars.yml --debug # + guards and
                                                   # visit_summary.json
+    python -m wayne_tpu_torch.run_visit -p pars.yml --quicklook  # + PNGs
     python -m wayne_tpu_torch.run_visit --example > example_pars.yml
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
@@ -80,6 +81,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="run the plain PyTorch path on the CPU")
     parser.add_argument("--no-resume", action="store_true",
                         help="rewrite exposures even if files exist")
+    parser.add_argument("--quicklook", action="store_true",
+                        help="also write diagnostic PNGs (needs matplotlib)")
     parser.add_argument("--debug", action="store_true",
                         help="run NaN/saturation guards + visit_summary.json")
     parser.add_argument("--example", action="store_true",
@@ -108,7 +111,34 @@ def main(argv: list[str] | None = None) -> int:
     paths = obs.generate(cfg.outdir, chunk=args.chunk, progress=print,
                          resume=not args.no_resume, debug=args.debug)
     print(f"wrote {len(paths)} exposures to {cfg.outdir}")
+    if args.quicklook:
+        # from the files just written: simulating the visit again would
+        # double the run for frames already on disk
+        from types import SimpleNamespace
+
+        from wayne_tpu_torch.diagnostics import visit_quicklooks
+
+        res = SimpleNamespace(reads_dn=read_back(obs, cfg.outdir))
+        pngs = visit_quicklooks(obs, res, cfg.outdir)
+        print(f"quicklooks: {', '.join(pngs)}")
     return 0
+
+
+def read_back(obs, outdir: str):
+    """The reads (n_exp, NR, S, S) DN of the ima files ``obs.generate``
+    wrote to ``outdir``, count-rate products turned back into DN."""
+    import numpy as np
+
+    from wayne_tpu_torch.io.ima import read_ima
+
+    stacks = []
+    for i in range(obs.plan.n_exposures):
+        hdr, reads, times = read_ima(obs._exp_path(outdir, i))
+        if str(hdr.get("BUNIT", "COUNTS")).upper().startswith("ELECTRONS"):
+            reads = (reads * np.asarray(times)[:, None, None]
+                     / float(obs.tables.gain))
+        stacks.append(np.asarray(reads, np.float32))
+    return np.stack(stacks)
 
 
 if __name__ == "__main__":
