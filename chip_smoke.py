@@ -92,8 +92,27 @@ process per source, in parallel, linked into one library) and then:
    ``fit_white_recte`` timed with their kernel launches counted; (c) the
    eclipse visit through ``run_reduce --mode eclipse --detrend ramp``
    (Fp/Fs within 6 sigma) and ``fit_phase_curve`` on phase 7's
-   phase-curve curves (fp, A and the offset within 6 sigma). ``python3
-   chip_smoke.py --phases 9,10`` runs those phases alone and prints no
+   phase-curve curves (fp, A and the offset within 6 sigma);
+11. inference at full width (see ``phase_inference``): (a) ``run_reduce
+   --mcmc 1000`` on phase 10's uncut visit, divide-white and with ``--detrend
+   ramp --fit-geometry``: posterior medians within max(6 sigma, 0.01) of the
+   injected Rp/Rs and within the LM depth's 1 sigma, R-hat and ESS printed,
+   the card's samplers against the same calls on the CPU by their law, and
+   the launch calls per ensemble step; (b) ``run_retrieve --n-chan 8
+   --chunk 8 --n-lm 4`` on the same files: B1 launched once per chunk and
+   residual pass through its autograd Function, B1 = plain bit for bit on
+   the model twin's chunk that holds mid-transit (recorded from a
+   residual-only pass) and timed there, the tangent pass of that chunk
+   timed (and beside it the same tangents by ``torch.func.jvp`` of the
+   plain version), its depth Jacobian at ``run_retrieve``'s flat start card
+   against CPU and against central finite differences on the card (every
+   column nonzero), the
+   retrieved Rp/Rs within max(6 sigma, 0.01), the run's seconds split into
+   set-up, reading, LM and covariance, the launch calls of one LM pass;
+   (c) ``run_retrieve --program --mcmc 1000`` on phase 7's program: the t0
+   offsets' drift within 6 sigma of the injected, the posterior printed.
+   ``python3 chip_smoke.py --phases 9,10,11`` runs those phases alone
+   (phase 11 without 10 writes its visit and program itself) and prints no
    result lines.
 
 The JSON line's launch counts add up every phase's.
@@ -106,7 +125,9 @@ rate against the operations over the rates of their pipes, see
 
 Prints the card's name and power limit first, a JSON line with the
 kernels' numbers (with ``exact_ms``, each kernel's exact-mode time, and
-its bound) before the last line, and last ``{"ok": true, "device":
+its bound; B1's row also with ``twin_ms`` and ``tangent_ms``, its time on
+phase 11's model-twin chunk and that chunk's tangent pass) before the last
+line, and last ``{"ok": true, "device":
 {...}}`` with the one card the run used. Any failed check exits non-zero. It
 needs a CUDA card and the repository around it, and fails without either.
 """
@@ -1240,11 +1261,12 @@ def phase_full_systematics(card: str) -> tuple:
 # Phase 7: eclipse, phase curve and the three-visit program
 # ---------------------------------------------------------------------------
 
-def phase_eclipse_and_program(card: str) -> int:
+def phase_eclipse_and_program(card: str, out: str) -> int:
     """simulate() of the eclipse visit (against the same visit without
     planet light) and of the phase-curve visit (its reads reduced for
-    phase 10c), then ``run_program`` on the three-visit program. Returns
-    (B1's launches, the phase-curve visit's curves)."""
+    phase 10c), then ``run_program`` on the three-visit program into
+    ``out`` (kept for phase 11c). Returns (B1's launches, the phase-curve
+    visit's curves)."""
     import dataclasses
 
     import numpy as np
@@ -1314,21 +1336,20 @@ def phase_eclipse_and_program(card: str) -> int:
     ro.exposure_readout.launches = 0
     said = io.StringIO()
     try:
-        with tempfile.TemporaryDirectory() as out:
-            with contextlib.redirect_stdout(said):
-                rc, wall = _synced(lambda: run_program.main(
-                    ["-p", PROGRAM, "-o", out, "--chunk", str(CHUNK)]))
-            lines = said.getvalue().splitlines()
-            print(f"  run_program: {lines[0]} ... {lines[-1]}")
-            with open(os.path.join(out, "program_summary.json")) as fh:
-                summary = json.load(fh)
-            carries = [os.path.join(out, f"visit_{i:02d}",
-                                    "carry_fluence.npy") for i in range(3)]
-            n_files = [len([f for f in os.listdir(os.path.join(
-                out, v["dir"])) if f.endswith("_ima.fits")])
-                for v in summary["visits"]]
-            carry_ok = all(os.path.exists(c) for c in carries) and float(
-                np.load(carries[0]).max()) > 0.0
+        with contextlib.redirect_stdout(said):
+            rc, wall = _synced(lambda: run_program.main(
+                ["-p", PROGRAM, "-o", out, "--chunk", str(CHUNK)]))
+        lines = said.getvalue().splitlines()
+        print(f"  run_program: {lines[0]} ... {lines[-1]}")
+        with open(os.path.join(out, "program_summary.json")) as fh:
+            summary = json.load(fh)
+        carries = [os.path.join(out, f"visit_{i:02d}",
+                                "carry_fluence.npy") for i in range(3)]
+        n_files = [len([f for f in os.listdir(os.path.join(
+            out, v["dir"])) if f.endswith("_ima.fits")])
+            for v in summary["visits"]]
+        carry_ok = all(os.path.exists(c) for c in carries) and float(
+            np.load(carries[0]).max()) > 0.0
     finally:
         observation._load_fluence_map = real
     cfg = load_yaml(PROGRAM)
@@ -2305,7 +2326,7 @@ def _phase_curve_fits(pc: dict, card: str) -> None:
               f"{[round(v, 1) for v in off.tolist()]} deg")
 
 
-def phase_reduce_cli(card: str, phase_curves: dict) -> int:
+def phase_reduce_cli(card: str, phase_curves: dict, root: str) -> int:
     """The reduction CLIs at full width on the card. (a) ``etc.predict``
     of the headline YAML: B1 once (noise flags off) and held against its
     plain version, the report against the CPU's at rtol 1e-5. (b) The
@@ -2318,7 +2339,8 @@ def phase_reduce_cli(card: str, phase_curves: dict) -> int:
     counted. (c) The eclipse visit through ``run_reduce --mode eclipse
     --detrend ramp`` (Fp/Fs within 6 sigma of the injected), and
     ``fit_phase_curve`` on phase 7's phase-curve curves (fp, A and the
-    offset within 6 sigma; card against CPU). Returns B1's launches."""
+    offset within 6 sigma; card against CPU). The uncut visit stays in
+    ``root``/visit for phase 11. Returns B1's launches."""
     import dataclasses
 
     import numpy as np
@@ -2376,7 +2398,7 @@ def phase_reduce_cli(card: str, phase_curves: dict) -> int:
     obs = Observation(cfg)
     n_exp = obs.plan.n_exposures
     fit_calls = {}
-    with tempfile.TemporaryDirectory() as d:
+    with contextlib.nullcontext(root) as d:
         visit = os.path.join(d, "visit")
         ro.exposure_readout.launches = 0
         said = io.StringIO()
@@ -2520,23 +2542,418 @@ def phase_reduce_cli(card: str, phase_curves: dict) -> int:
     return launches
 
 
-def partial_run(only: set, card: str) -> int:
-    """Phases 9 and 10 alone (``--phases``); phase 10 then simulates the
-    phase-curve visit itself. Prints no result lines."""
+# ---------------------------------------------------------------------------
+# Phase 11: inference (run_reduce --mcmc, run_retrieve, --program --mcmc)
+# ---------------------------------------------------------------------------
+
+MCMC_STEPS = 1000           # run_reduce --mcmc's steps (the CPU tests')
+MCMC_RUNS = (               # run_reduce --mcmc on the uncut headline visit
+    ("divide-white", []),
+    ("ramp --fit-geometry", ["--detrend", "ramp", "--fit-geometry"]),
+)
+# run_retrieve on the same files: 8 channels, one B1 launch per chunk of
+# CHUNK exposures, 4 LM steps
+RETRIEVE_ARGS = ["--n-chan", "8", "--chunk", str(CHUNK), "--n-lm", "4"]
+PROGRAM_MCMC = 1000         # run_retrieve --program --mcmc's steps
+
+
+def _same_law(got, want, label: str, bars=(0.25, 0.25)) -> tuple:
+    """Two posterior summaries (median, half-width) by their law, at the
+    CPU tests' bars: the medians within ``bars[0]`` of the half-width, the
+    half-widths within ``bars[1]`` relative. Returns the two gaps."""
+    (m_g, w_g), (m_w, w_w) = got, want
+    gap = abs(m_g - m_w) / w_w, abs(w_g / w_w - 1.0)
+    check(gap[0] <= bars[0] and gap[1] <= bars[1],
+          f"{label}: card {m_g:.6g} +- {w_g:.3g}, CPU {m_w:.6g} +- "
+          f"{w_w:.3g}: medians {gap[0]:.3f} of the half-width apart (bar "
+          f"{bars[0]}), half-widths {gap[1]:.1%} (bar {bars[1]:.0%})")
+    return gap
+
+
+def _pct(x, q=(16.0, 50.0, 84.0)):
+    """(median, half-width) of samples from their 16/50/84 percentiles."""
+    import numpy as np
+
+    lo, mid, hi = np.percentile(np.asarray(x, np.float64), q)
+    return mid, 0.5 * (hi - lo)
+
+
+def _steps_launches(fn, label: str, card: str) -> float:
+    """Kernel launch calls per sampler step: ``fn(k)`` samples k steps;
+    traces at 20 and 40 steps (the set-up is the same in both)."""
+    a, b = (kernels_in(lambda: fn(k), warmup=False) for k in (20, 40))
+    per = (b - a) / 20.0
+    print(f"launches [{card}]: {label}: {per:.1f} kernel launch calls per "
+          f"ensemble step ({a} at 20 steps, {b} at 40)")
+    return per
+
+
+def _twin_jacobian(dev, k_chunk: int, x_window, n_chan: int,
+                   h: float = 2e-3):
+    """The model twin's channel sums of the headline visit's chunk
+    ``k_chunk`` (CHUNK exposures) at ``run_retrieve``'s own start, every
+    one of ``n_chan`` channel depths at the YAML's flat Rp/Rs, on ``dev``:
+    their Jacobian by ``torch.func.jacfwd`` and by central finite
+    differences with step ``h`` (each perturbed bin then sits on a control
+    node of the interpolated light curve), both (CHUNK, n_chan, n_chan),
+    and B1's launches in the ``jacfwd`` call."""
+    import dataclasses
+
     import torch
 
+    from wayne_tpu_torch import retrieval as ret
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.pytree import tree_map
+    from wayne_tpu_torch.reduction import _channel_edges, _channel_flux
+
+    obs = Observation(load_yaml(HEADLINE), device=dev)
+    sc = ret.deterministic_scenes(tree_map(
+        lambda x: x[k_chunk * CHUNK: (k_chunk + 1) * CHUNK], obs.scenes))
+    twin = ret.deterministic_cfg(obs.static)
+    idx, in_win = ret.bin_channel_map(sc, obs.tables, x_window, n_chan)
+    idx = torch.as_tensor(idx, device=dev)
+    in_win = torch.as_tensor(in_win, dtype=torch.float32, device=dev)
+    edges = _channel_edges(x_window, n_chan)
+    fixed = sc.rp_over_rs[0]
+
+    def channels(depth):
+        rp = in_win * depth[idx] + (1.0 - in_win) * fixed
+        s = dataclasses.replace(sc, rp_over_rs=rp[None].expand(sc.n, -1))
+        return _channel_flux(ret.forward_spectra(s, obs.tables, twin,
+                                                 chunk=CHUNK), edges)
+
+    start = torch.full((n_chan,), RP_INJECTED, device=dev)
+    ro.exposure_readout.launches = 0
+    J = torch.func.jacfwd(channels)(start)
+    n = ro.exposure_readout.launches
+    step = h * torch.eye(n_chan, device=dev)
+    fd = torch.stack([(channels(start + e) - channels(start - e)) / (2 * h)
+                      for e in step], dim=-1)
+    return J.cpu(), fd.cpu(), n
+
+
+def phase_inference(card: str, root: str) -> int:
+    """Inference at full width on the card: (a) ``run_reduce --mcmc`` on
+    phase 10's uncut headline visit (``root``/visit), divide-white and
+    with the ramp and a free ephemeris; (b) ``run_retrieve`` on the same
+    files, the model twin's readout B1 through its autograd Function; (c)
+    ``run_retrieve --program --mcmc`` on phase 7's three-visit program
+    (``root``/program). Returns (B1's launches, B1's numbers on the model
+    twin's chunk)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from torch.autograd import forward_ad
+
+    from wayne_tpu_torch import mcmc, retrieval, run_retrieve
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.ops.kepler import projected_separation
+    from wayne_tpu_torch.pytree import tree_map
+
+    visit, program = os.path.join(root, "visit"), os.path.join(root, "program")
+    launches = 0
+    print("phase 11: inference at full width")
+    t_phase = time.time()
+
+    # (a) run_reduce --mcmc: the card's samplers recorded, replayed on the
+    # CPU on the same curves
+    real = {k: getattr(mcmc, k) for k in ("sample_white_posterior",
+                                          "sample_channel_posteriors")}
+    calls = {}
+
+    def keep(name):
+        def call(*a, **kw):
+            out, wall = _synced(lambda: real[name](*a, **kw))
+            calls[name] = (a, kw, wall, out)
+            return out
+        return call
+
+    cpu = lambda v: (v.cpu() if isinstance(v, torch.Tensor)
+                     else tree_map(lambda x: x.cpu(), v)
+                     if dataclasses.is_dataclass(v) else v)
+    for i, (label, extra) in enumerate(MCMC_RUNS):
+        for name in real:
+            setattr(mcmc, name, keep(name))
+        ro.exposure_readout.launches = 0
+        try:
+            report, _, secs = _reduce_cli(
+                ["-d", visit, "-p", HEADLINE, "-o",
+                 os.path.join(root, f"mcmc{i}.json"), "--mcmc",
+                 str(MCMC_STEPS), *extra], f"--mcmc {MCMC_STEPS} {label}",
+                card)
+        finally:
+            for name, fn in real.items():
+                setattr(mcmc, name, fn)
+        launches += ro.exposure_readout.launches
+        wp = report["white_posterior"]
+        w_white = 0.5 * (wp["depth_plus"] + wp["depth_minus"])
+        rows = [("white", wp["rp_over_rs_median"], w_white, None, None)]
+        if "white_ramp_fit" in report:
+            lm = report["white_ramp_fit"]
+            rows[0] = rows[0][:3] + (lm["rp_over_rs"], lm["rp_sigma"])
+        rows += [(f"channel {k}", c["rp_mcmc_median"],
+                  0.5 * (c["rp_mcmc_plus"] + c["rp_mcmc_minus"]),
+                  c["rp_over_rs"], c["rp_sigma"])
+                 for k, c in enumerate(report["channels"])]
+        worst = max(abs(m - RP_INJECTED) / max(6.0 * w, 0.01)
+                    for _, m, w, _, _ in rows)
+        lm_gap = max(abs(m - d) / s for _, m, _, d, s in rows
+                     if d is not None)
+        check(worst < 1.0 and lm_gap <= 1.0,
+              f"run_reduce --mcmc {label}: posterior medians within max(6 "
+              f"sigma, 0.01) of the injected {RP_INJECTED} (largest |err| "
+              f"/ bar {worst:.3f}) and within the LM depth's 1 sigma "
+              f"(largest {lm_gap:.3f} sigma): "
+              + ", ".join(f"{n} {m:.5f} +- {w:.5f}"
+                          for n, m, w, _, _ in rows))
+        print(f"  white posterior: acceptance {wp['acceptance']}, split "
+              f"R-hat max {wp['rhat_max']}, ESS min {wp['ess_min']}; "
+              f"channels R-hat "
+              f"{[c['rp_mcmc_rhat'] for c in report['channels']]}, ESS "
+              f"{[c['rp_mcmc_ess'] for c in report['channels']]}")
+        # the same samplers on the CPU, on the same curves
+        a_w, kw_w, t_white, post_w = calls["sample_white_posterior"]
+        a_c, kw_c, t_chan, post_c = calls["sample_channel_posteriors"]
+        on_cpu = lambda n, a, kw: _synced(lambda: real[n](
+            *[cpu(v) for v in a], **{k: cpu(v) for k, v in kw.items()}))
+        cpu_w, t_white_cpu = on_cpu("sample_white_posterior", a_w, kw_w)
+        cpu_c, t_chan_cpu = on_cpu("sample_channel_posteriors", a_c, kw_c)
+        half = lambda p: float(0.5 * (p.rp_plus + p.rp_minus))
+        gaps = [_same_law((float(post_w.rp_median), half(post_w)),
+                          (float(cpu_w.rp_median), half(cpu_w)),
+                          f"--mcmc {label}: white posterior, card vs CPU")]
+        for k in range(post_c.rp_median.shape[0]):
+            w_g = float(0.5 * (post_c.rp_plus[k] + post_c.rp_minus[k]))
+            w_w = float(0.5 * (cpu_c.rp_plus[k] + cpu_c.rp_minus[k]))
+            gaps.append(_same_law((float(post_c.rp_median[k]), w_g),
+                                  (float(cpu_c.rp_median[k]), w_w),
+                                  f"--mcmc {label}: channel {k}, card vs "
+                                  "CPU"))
+        if "--fit-geometry" in extra:
+            # the free ephemeris's chain does not converge in MCMC_STEPS
+            # (split R-hat ~2): the CPU tests' bars for its percentiles
+            for j, name in ((6, "t0 offset"), (7, "a/Rs"), (8, "cos i")):
+                gaps.append(_same_law(
+                    _pct(post_w.samples[:, j].cpu()),
+                    _pct(cpu_w.samples[:, j]),
+                    f"--mcmc {label}: {name}, card vs CPU", (0.5, 0.35)))
+        print(f"timing [{card}]: --mcmc {label}: white posterior "
+              f"{t_white:.3f} s on the card, {t_white_cpu:.3f} s on the "
+              f"CPU; channel posteriors {t_chan:.3f} s, {t_chan_cpu:.3f} s; "
+              f"the run {secs['total']:.3f} s; largest card-CPU gaps "
+              f"{max(g[0] for g in gaps):.3f} of a half-width, "
+              f"{max(g[1] for g in gaps):.1%} in width")
+        if i == 0:
+            _steps_launches(lambda k: real["sample_channel_posteriors"](
+                *a_c, **dict(kw_c, n_steps=k, n_burn=k // 2)),
+                "sample_channel_posteriors (8 ensembles of 16 walkers)",
+                card)
+            _steps_launches(lambda k: real["sample_white_posterior"](
+                *a_w, **dict(kw_w, n_steps=k, n_burn=k // 2)),
+                "sample_white_posterior (32 walkers)", card)
+        del calls["sample_white_posterior"], calls["sample_channel_posteriors"]
+
+    # (b) run_retrieve on the same files: one noise-off chunk recorded (the
+    # chunk holding mid-transit, from a residual-only pass), the LM and the
+    # covariance timed
+    cfg = load_yaml(HEADLINE)
+    obs = Observation(cfg)
+    n_exp = obs.plan.n_exposures
+    z, _ = projected_separation(
+        obs.scenes.exp_start_s + 0.5 * obs.detector_exptime,
+        tree_map(lambda x: x[0], obs.scenes.orbit))
+    k_chunk = int(torch.argmin(z)) // CHUNK
+    n_chunks = math.ceil(n_exp / CHUNK)
+    del obs
+    import wayne_tpu_torch.ops.exposure as ex
+    real_ro, real_read = ex.exposure_readout, run_retrieve.raw_column_sums
+    real_lm, real_fit = retrieval._lm, retrieval.retrieve_transmission
+    real_vj = retrieval._lm_val_jac
+    plain_calls, spent, recorded, vj_calls = [0], {"read": 0.0}, [], []
+
+    def readout(*a, **kw):
+        bands = kw["bands"]
+        if not (bands.requires_grad or forward_ad.unpack_dual(
+                bands).tangent is not None):
+            if plain_calls[0] == k_chunk:
+                recorded.append(dict(kw))
+            plain_calls[0] += 1
+        return real_ro(*a, **kw)
+
+    def read(*a, **kw):
+        out, wall = _synced(lambda: real_read(*a, **kw))
+        spent["read"] += wall
+        return out
+
+    def fit(*a, **kw):
+        out, wall = _synced(lambda: real_fit(*a, **kw))
+        spent["fit"] = wall
+        return out
+
+    def lm(*a, **kw):
+        out, wall = _synced(lambda: real_lm(*a, **kw))
+        spent["lm"] = wall
+        return out
+
+    def val_jac(*a, **kw):
+        if not vj_calls:
+            vj_calls.append((a, kw))
+        vj_calls.append(None)
+        return real_vj(*a, **kw)
+
+    ex.exposure_readout, run_retrieve.raw_column_sums = readout, read
+    retrieval._lm, retrieval.retrieve_transmission = lm, fit
+    retrieval._lm_val_jac = val_jac
+    out = os.path.join(root, "retrieved.json")
+    ro.exposure_readout.launches = 0
+    said = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(said):
+            rc, wall = _synced(lambda: run_retrieve.main(
+                ["-d", visit, "-p", HEADLINE, "-o", out, *RETRIEVE_ARGS]))
+    finally:
+        ex.exposure_readout, run_retrieve.raw_column_sums = real_ro, real_read
+        retrieval._lm, retrieval.retrieve_transmission = real_lm, real_fit
+        retrieval._lm_val_jac = real_vj
+    b1 = ro.exposure_readout.launches
+    launches += b1
+    n_vj = len(vj_calls) - 1
+    with open(out) as fh:
+        rep = json.load(fh)
+    check(rc == 0 and b1 > 0 and b1 == n_vj * n_chunks,
+          f"phase 11b: run_retrieve {' '.join(RETRIEVE_ARGS)} of the uncut "
+          f"visit ({n_exp} files): {b1} B1 launches = {n_vj} residual "
+          f"passes ({rep['lm_iterations']} LM iterations) x {n_chunks} "
+          f"chunks; " + said.getvalue().splitlines()[-1])
+    rows = [(c["rp_over_rs"], c["rp_sigma"]) for c in rep["channels"]]
+    worst = max(abs(v - RP_INJECTED) / max(6.0 * s, 0.01) for v, s in rows)
+    check(worst < 1.0,
+          f"run_retrieve: retrieved Rp/Rs within max(6 sigma, 0.01) of the "
+          f"injected {RP_INJECTED} (largest |err| / bar {worst:.3f}): "
+          + ", ".join(f"{v:.5f} +- {s:.5f}" for v, s in rows)
+          + f"; chi2/dof {rep['chi2_per_dof']}")
+    fit_t, lm_t = spent["fit"], spent["lm"]
+    print(f"timing [{card}]: run_retrieve {wall:.3f} s = set-up "
+          f"{wall - spent['read'] - fit_t:.3f} s + reading files "
+          f"{spent['read']:.3f} s + LM {lm_t:.3f} s + covariance and the "
+          f"fit's binning {fit_t - lm_t:.3f} s")
+    kw = recorded[0]
+    names = ("seed", "y0s", "dts", "bands", "bg_rate", "bias_map",
+             "inv_gain", "nl_coeffs", "cr_pos", "cr_q", "consts")
+    rec = (tuple(kw[n] for n in names),
+           {k: v for k, v in kw.items() if k not in names})
+    errs = hold_recorded(ro, rec, "phase 11b",
+                         f"the model twin's chunk {k_chunk} (noise off)")
+    twin = time_readout(ro, rec[0], rec[1], "the model twin's chunk", card)
+    twin["max_abs_err"] = max(errs)
+    args, flags = rec
+    bands = args[3]
+    n_par = 8
+    tang = torch.randn((n_par,) + tuple(bands.shape), device=bands.device)
+    f = lambda b: ro.exposure_readout(*args[:3], b, *args[4:], **flags)
+    tangent_pass = lambda: torch.func.vmap(
+        lambda t: torch.func.jvp(f, (bands,), (t,))[1][0])(tang)
+    twin["tangent_ms"] = cuda_ms(tangent_pass, reps=5)
+    # the same tangents by forward mode through the whole plain version,
+    # the alternative to the Function's written-out tangent chain
+    plain = lambda b: ro.exposure_readout_plain(*args[:3], b, *args[4:],
+                                                **flags)
+    plain_ms = cuda_ms(lambda: torch.func.vmap(
+        lambda t: torch.func.jvp(plain, (bands,), (t,))[1][0])(tang), reps=5)
+    print(f"timing [{card}]: the tangent pass of that chunk ({n_par} "
+          f"tangents through the readout's Function, its one B1 launch "
+          f"included): {twin['tangent_ms']:.3f} ms; by torch.func.jvp of "
+          f"the plain version {plain_ms:.3f} ms; B1 alone "
+          f"{twin['ms']:.4f} ms")
+    x_window = tuple(rep["windows"]["cols"])
+    (J_g, fd_g, n_g), (J_c, _, _) = (_twin_jacobian(d, k_chunk, x_window, 8)
+                                     for d in ("cuda", "cpu"))
+    col_gap = lambda J, ref: float(((J - ref).abs().amax(dim=(0, 1))
+                                    / ref.abs().amax(dim=(0, 1))).max())
+    gap, fd_gap = col_gap(J_g, J_c), col_gap(J_g, fd_g)
+    check(n_g == 1 and bool((J_g.abs().amax(dim=(0, 1)) > 0).all())
+          and gap <= 2e-3 and fd_gap <= 3e-3,
+          f"the chunk's depth Jacobian {tuple(J_g.shape)} at run_retrieve's "
+          f"flat start, through B1 ({n_g} launch): every column nonzero, "
+          f"card = CPU within 2e-3 of each column's largest entry (largest "
+          f"{gap:.3g}), and within 3e-3 of central finite differences on "
+          f"the card, h = 2e-3 (largest {fd_gap:.3g})")
+    a_vj, kw_vj = vj_calls[0]
+    for with_jac in (True, False):
+        n = kernels_in(lambda: real_vj(*a_vj, **dict(kw_vj,
+                                                      with_jac=with_jac)))
+        print(f"launches [{card}]: _lm_val_jac with_jac={with_jac}: {n} "
+              f"kernel launch calls ({n / n_chunks:.0f} a chunk)")
+    del recorded, rec, args, bands, tang, vj_calls, a_vj
+
+    # (c) run_retrieve --program --mcmc on phase 7's program
+    out = os.path.join(root, "retrieved_joint.json")
+    ro.exposure_readout.launches = 0
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        rc, wall = _synced(lambda: run_retrieve.main(
+            ["-d", program, "-p", PROGRAM, "--program", "-o", out,
+             *RETRIEVE_ARGS, "--mcmc", str(PROGRAM_MCMC)]))
+    b1 = ro.exposure_readout.launches
+    launches += b1
+    with open(out) as fh:
+        rep = json.load(fh)
+    drift_true = load_yaml(PROGRAM).program.t0_drift_s_per_visit
+    t0, s0 = np.array(rep["t0_offsets_s"]), np.array(
+        rep["t0_offsets_sigma_s"])
+    # the least-squares slope over visits 0, 1, 2 and its sigma
+    x = np.arange(t0.size) - (t0.size - 1) / 2.0
+    s_drift = float(np.sqrt(np.sum((x / np.sum(x * x)) ** 2 * s0 ** 2)))
+    drift = rep["drift_s_per_visit_fitted"]
+    pp = rep["program_posterior"]
+    check(rc == 0 and b1 > 0
+          and abs(drift - drift_true) <= 6.0 * s_drift,
+          f"phase 11c: run_retrieve --program --mcmc {PROGRAM_MCMC} on "
+          f"{os.path.relpath(PROGRAM, HERE)}: {b1} B1 launches; t0 "
+          f"offsets {t0.tolist()} +- {s0.tolist()} s, drift {drift} +- "
+          f"{s_drift:.2f} s/visit, within 6 sigma of the injected "
+          f"{drift_true}")
+    print(f"  program posterior: {json.dumps(pp)}")
+    print(f"timing [{card}]: run_retrieve --program --mcmc {wall:.3f} s; "
+          f"phase 11 took {time.time() - t_phase:.1f} s")
+    return launches, twin
+
+
+def partial_run(only: set, card: str) -> int:
+    """Phases 9, 10 and 11 alone (``--phases``); phase 10 then simulates
+    the phase-curve visit itself, and phase 11 without phase 10 writes the
+    uncut headline visit (``run_visit``) and the three-visit program
+    (``run_program``) itself. Prints no result lines."""
+    import torch
+
+    from wayne_tpu_torch import run_program, run_visit
     from wayne_tpu_torch.config import load_yaml
     from wayne_tpu_torch.observation import Observation
 
     if 9 in only:
         phase_reduction(card)
-    if 10 in only:
-        obs = Observation(load_yaml(PHASE))
-        res = obs.simulate(chunk=CHUNK)
-        torch.cuda.synchronize()
-        curves = phase_curve_curves(obs, res, card)
-        del obs, res
-        phase_reduce_cli(card, curves)
+    with tempfile.TemporaryDirectory() as root:
+        if 10 in only:
+            obs = Observation(load_yaml(PHASE))
+            res = obs.simulate(chunk=CHUNK)
+            torch.cuda.synchronize()
+            curves = phase_curve_curves(obs, res, card)
+            del obs, res
+            phase_reduce_cli(card, curves, root)
+        if 11 in only:
+            with contextlib.redirect_stdout(io.StringIO()):
+                if 10 not in only:
+                    run_visit.main(["-p", HEADLINE, "-o", os.path.join(
+                        root, "visit"), "--chunk", str(CHUNK)])
+                run_program.main(["-p", PROGRAM, "-o", os.path.join(
+                    root, "program"), "--chunk", str(CHUNK)])
+            phase_inference(card, root)
     check("jax" not in sys.modules, "jax was not imported")
     print(f"partial run of phases {sorted(only)}: no result lines")
     return 0
@@ -2586,7 +3003,11 @@ def main(argv: list[str] | None = None) -> int:
     launches += full_b1
     per_read["read_step_banded"] += full_b2
     whole["max_abs_err"] = max(whole["max_abs_err"], *full_errs)
-    b1, phase_curves = phase_eclipse_and_program(card)
+    # phase 7's program output and phase 10's uncut visit stay on disk for
+    # phase 11
+    keep = tempfile.TemporaryDirectory()
+    b1, phase_curves = phase_eclipse_and_program(
+        card, os.path.join(keep.name, "program"))
     launches += b1
     exact, exact_launches = phase_exact(args, recorded, card)
     del args, recorded
@@ -2596,7 +3017,11 @@ def main(argv: list[str] | None = None) -> int:
     del full
     launches += phase_compat(card)
     launches += phase_reduction(card)
-    launches += phase_reduce_cli(card, phase_curves)
+    launches += phase_reduce_cli(card, phase_curves, keep.name)
+    b1, twin = phase_inference(card, keep.name)
+    launches += b1
+    whole["max_abs_err"] = max(whole["max_abs_err"], twin["max_abs_err"])
+    keep.cleanup()
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")
@@ -2618,7 +3043,9 @@ def main(argv: list[str] | None = None) -> int:
         "launches": n, "max_abs_err": k["max_abs_err"], "ms": k["ms"],
         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None,
-        "exact_ms": exact[name][0], "exact_bound_ms": exact[name][1]}
+        "exact_ms": exact[name][0], "exact_bound_ms": exact[name][1],
+        **({"twin_ms": twin["ms"], "tangent_ms": twin["tangent_ms"]}
+           if name == "exposure_readout" else {})}
         for name, src, line, n, k in rows]}))
     # the run uses one card, cuda:0, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {

@@ -925,3 +925,118 @@ def test_run_reduce_and_etc_on_the_card_match_cpu(card, tmp_path):
             np.testing.assert_allclose(a, b, rtol=1e-5, err_msg=f.name)
         else:
             assert a == b, f.name
+
+
+def _depth_jacobian(dev):
+    """The Jacobian of a transit visit's channel sums (6 exposures of a
+    128^2 scan, NSAMP 4, the noise off) with respect to four channel
+    depths, by ``torch.func.jacfwd`` through the model twin on ``dev``;
+    and the whole-exposure kernel's launches in that call."""
+    from wayne_tpu_torch import retrieval as ret
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.reduction import _channel_edges, _channel_flux
+
+    cfg = config_from_dict({**TINY, "exposures_per_orbit": 6,
+                            "start_mjd": 55999.975, "t0": 56000.0,
+                            "period": 0.813475, "rp_over_rs": 0.1595,
+                            "noise": DETERMINISTIC})
+    obs = Observation(cfg, device=dev)
+    twin = ret.deterministic_cfg(obs.static)
+    scenes = ret.deterministic_scenes(obs.scenes)
+    x_window, n_chan = (70, 126), 4
+    idx, in_win = ret.bin_channel_map(scenes, obs.tables, x_window, n_chan)
+    idx = torch.as_tensor(idx, device=dev)
+    in_win = torch.as_tensor(in_win, dtype=torch.float32, device=dev)
+    edges = _channel_edges(x_window, n_chan)
+    fixed = scenes.rp_over_rs[0]
+
+    def channels(depth):
+        rp = in_win * depth[idx] + (1.0 - in_win) * fixed
+        sc = dataclasses.replace(scenes, rp_over_rs=rp[None].expand(
+            scenes.n, -1))
+        return _channel_flux(ret.forward_spectra(sc, obs.tables, twin,
+                                                 chunk=6), edges)
+
+    ro.exposure_readout.launches = 0
+    J = torch.func.jacfwd(channels)(torch.tensor(
+        [0.158, 0.160, 0.157, 0.161], device=dev))
+    return J.cpu(), ro.exposure_readout.launches
+
+
+@pytest.mark.cuda
+def test_retrieval_jacobian_on_the_card_matches_cpu(card):
+    """The depth Jacobian through B1's autograd Function: on the card one
+    B1 launch for the chunk, every depth column nonzero, and within 2e-3
+    of each column's largest entry of the CPU's (the bar of
+    tests/test_torch_retrieval.py's Jacobian against JAX's)."""
+    got, launches = _depth_jacobian("cuda")
+    want, _ = _depth_jacobian("cpu")
+    assert launches == 1
+    for c in range(4):
+        col = want[..., c]
+        assert float(got[..., c].abs().max()) > 0.0
+        torch.testing.assert_close(got[..., c], col, rtol=0,
+                                   atol=2e-3 * float(col.abs().max()))
+
+
+@pytest.mark.cuda
+def test_readout_function_value_is_the_kernels_under_jvp(card):
+    """Under ``torch.func.jvp`` the whole-exposure readout's value is B1's,
+    bit for bit with the plain version, its tangent the CPU's within rtol
+    1e-6 of the largest entry, and the kernel launched once."""
+    import wayne_tpu_torch.ops.readout as ro
+
+    args = _readout_inputs(card)
+    off = dict(poisson=False, read_noise=False, with_cr=False, ipc=True)
+    tangent = torch.rand(args[3].shape, generator=torch.Generator(
+    ).manual_seed(5)).to(card)
+
+    def run(a, t):
+        fn = lambda b: ro.exposure_readout(*a[:3], b, *a[4:], **off)
+        return torch.func.jvp(fn, (a[3],), (t,))
+
+    ro.exposure_readout.launches = 0
+    (reads, cum), (d_reads, d_cum) = run(args, tangent)
+    assert ro.exposure_readout.launches == 1
+    want, cum_w = exposure_readout_plain(*args, **off)
+    assert torch.equal(reads, want) and torch.equal(cum, cum_w)
+    cpu = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    _, (d_w, dc_w) = run(cpu, tangent.cpu())
+    for a, b in ((d_reads, d_w), (d_cum, dc_w)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_channel_posteriors_on_the_card_match_cpu(card):
+    """sample_channel_posteriors on the card against the CPU on the same
+    curves: the two runs draw different numbers (each device's
+    generator), so they are held by their law, as the CPU tests hold the
+    port against JAX: medians within 0.25 of the half-width, half-widths
+    within 25%."""
+    from wayne_tpu_torch.mcmc import sample_channel_posteriors
+    from wayne_tpu_torch.ops.kepler import OrbitParams, projected_separation
+    from wayne_tpu_torch.ops.transit import transit_depth_curve
+
+    t = torch.linspace(0.0, 4.0 * 3600.0, 56)
+    orbit = OrbitParams.create(0.813475 * 86400.0, 2.0 * 3600.0, 4.855,
+                               np.deg2rad(82.1))
+    ld = torch.tensor([0.65, -0.25, 0.45, -0.2])
+    z, infr = projected_separation(t, orbit)
+    g = torch.Generator().manual_seed(3)
+    rp = torch.tensor([0.155, 0.158, 0.1595, 0.162])
+    chans = (1.0 - (1.0 - transit_depth_curve(z[:, None], rp[None], ld, 32))
+             * infr[:, None]) + 4e-4 * torch.randn((56, 4), generator=g)
+    post = {}
+    for dev in ("cuda", "cpu"):
+        on = lambda x: x.to(dev)
+        post[dev] = sample_channel_posteriors(
+            on(chans), on(t), OrbitParams(*(on(getattr(orbit, f.name))
+                                            for f in dataclasses.fields(
+                                                OrbitParams))),
+            on(ld), 0.158, 7, n_steps=1500, n_burn=400)
+    a, b = post["cuda"], post["cpu"]
+    w_a = (0.5 * (a.rp_minus + a.rp_plus)).cpu()
+    w_b = 0.5 * (b.rp_minus + b.rp_plus)
+    assert bool(((a.rp_median.cpu() - b.rp_median).abs() <= 0.25 * w_b).all())
+    assert bool(((w_a / w_b - 1.0).abs() <= 0.25).all())

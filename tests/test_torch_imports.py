@@ -52,7 +52,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.run_reduce",
                      "wayne_tpu_torch.etc",
                      "wayne_tpu_torch.diagnostics",
-                     "wayne_tpu_torch.utils.cli"):
+                     "wayne_tpu_torch.utils.cli",
+                     "wayne_tpu_torch.mcmc",
+                     "wayne_tpu_torch.retrieval",
+                     "wayne_tpu_torch.run_retrieve"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -111,6 +114,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         etc(["-p", str(yml)])
     with pytest.raises(RuntimeError, match="CUDA"):
         predict(cfg)
+    from wayne_tpu_torch.run_retrieve import main as run_retrieve
+    from wayne_tpu_torch.run_retrieve import raw_column_sums
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_retrieve(["-d", str(tmp_path), "-p", str(yml)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        raw_column_sums([], "ramp", None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_retrieve(["-d", str(tmp_path), "-p", str(yml), "--program"])
     from wayne_tpu_torch.compat import ExposureGenerator, run
     with pytest.raises(RuntimeError, match="CUDA"):
         ExposureGenerator(subarray=64, n_lambda=16, nsamp=2)

@@ -11,7 +11,9 @@ drifts within 2e-4 px, sky weights within 1e-5 relative, and the white
 fits' nuisance parameters within 1e-2 relative (each plus the report's
 rounding unit). With ``--align`` in transit mode the JAX package's drift
 regressor runs in float64 (ROADMAP Queue C4: its float32 solve is farther
-from its float64 than the port's is).
+from its float64 than the port's is). With ``--mcmc`` the posteriors are
+held to the JAX package's by their law (the packages draw different
+random numbers), every other key as above.
 """
 
 import contextlib
@@ -227,10 +229,78 @@ def test_run_reduce_mode_refusals_match_jax(visits, tmp_path):
         assert said[0] == said[1], said
 
 
-def test_run_reduce_mcmc_raises_naming_item_9(visits, tmp_path):
-    visit, pars = visits["transit"]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        reduce_t(["-d", visit, "-p", pars, "--cpu", "--mcmc", "200"])
+MCMC_CASES = {
+    "transit": ("transit", []),
+    "fit_geometry": ("transit", ["--detrend", "ramp", "--fit-geometry"]),
+    "eclipse": ("orbit", ["--mode", "eclipse"]),
+}
+
+
+def _same_law(got, want, median, plus, minus, where, bars=(0.25, 0.25)):
+    """A posterior summary against the JAX package's: the median within
+    ``bars[0]`` of the JAX half-width ((plus + minus) / 2), the half-width
+    within ``bars[1]`` relative (the two packages draw different random
+    numbers)."""
+    w_j = 0.5 * (want[plus] + want[minus])
+    w_t = 0.5 * (got[plus] + got[minus])
+    assert abs(got[median] - want[median]) <= bars[0] * w_j, (where, got,
+                                                              want)
+    assert abs(w_t / w_j - 1.0) <= bars[1], (where, got, want)
+
+
+@pytest.mark.parametrize("case", list(MCMC_CASES))
+def test_run_reduce_mcmc_matches_jax(case, visits, tmp_path):
+    """``--mcmc 1000`` on four channels: every key the JAX package writes,
+    the posteriors by their law (``_same_law``; measured: the white and
+    channel depths at most 0.16 of the half-width apart, half-widths 9.9%),
+    every other number as ``compare_reports`` holds it; R-hat and ESS
+    present and finite. The free ephemeris's percentiles come from a
+    10-dimensional chain that 1000 steps do not converge (split R-hat ~2
+    in both packages), so they are held at 0.5 of the half-width and 35%
+    (measured 0.24 and 14%)."""
+    which, flags = MCMC_CASES[case]
+    want, got = _both(*visits[which], flags + ["--n-chan", "4", "--mcmc",
+                                               "1000"], tmp_path)
+    wp_j, wp_t = want.pop("white_posterior"), got.pop("white_posterior")
+    assert set(wp_t) == set(wp_j)
+    dkey = "fp_over_fs" if case == "eclipse" else "rp_over_rs"
+    assert wp_t["n_steps"] == 1000 and wp_t["n_burn"] == wp_j["n_burn"]
+    _same_law(wp_t, wp_j, f"{dkey}_median", "depth_plus", "depth_minus",
+              "white")
+    assert 0.1 < wp_t["acceptance"] < 0.95 and wp_t["ess_min"] > 0.0
+    assert np.isfinite(wp_t["rhat_max"])
+    if case == "fit_geometry":
+        g_t = wp_t["geometry_percentiles_16_50_84"]
+        g_j = wp_j["geometry_percentiles_16_50_84"]
+        for k in ("t0_offset_s", "sma_over_rs", "inclination_deg"):
+            lo, mid, hi = g_j[k]
+            _same_law(dict(m=g_t[k][1], p=g_t[k][2] - g_t[k][1],
+                           n=g_t[k][1] - g_t[k][0]),
+                      dict(m=mid, p=hi - mid, n=mid - lo), "m", "p", "n", k,
+                      bars=(0.5, 0.35))
+    p = "fp" if case == "eclipse" else "rp"
+    keys = [f"{p}_mcmc_{k}" for k in ("median", "plus", "minus", "rhat",
+                                      "ess")]
+    for c_t, c_j in zip(got["channels"], want["channels"]):
+        post_t = {k: c_t.pop(k) for k in keys}
+        post_j = {k: c_j.pop(k) for k in keys}
+        _same_law(post_t, post_j, keys[0], keys[1], keys[2], "channel")
+        assert post_t[keys[4]] > 0.0 and np.isfinite(post_t[keys[3]])
+    gaps = compare_reports(want, got)
+    assert not gaps, gaps
+
+
+def test_run_reduce_mcmc_phase_refusal_matches_jax(visits, tmp_path):
+    """``--mcmc`` in phase mode: both packages refuse with one message."""
+    said = []
+    for main in (reduce_j, reduce_t):
+        with pytest.raises(SystemExit, match="not wired for --mode phase") \
+                as err, contextlib.redirect_stdout(io.StringIO()):
+            main(["-d", visits["orbit"][0], "-p", visits["orbit"][1],
+                  "--cpu", "-o", str(tmp_path / "x.json"), "--mode",
+                  "phase", "--mcmc", "200"])
+        said.append(str(err.value))
+    assert said[0] == said[1], said
 
 
 def test_compare_reports_flags_what_differs():

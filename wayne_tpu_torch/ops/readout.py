@@ -200,23 +200,46 @@ def _add_background(cum, lam, sampled, z_bg, seed, read,
         lam, k0p, k1p, read, pix, TAG_BG_UNIFORM), z_bg)
 
 
+def _ipc(sig: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Inter-pixel capacitance over the last two axes: (1 - 4 alpha) of a
+    pixel stays, alpha goes to each of its four neighbours (zero beyond
+    the frame). Symmetric, so it is its own adjoint."""
+    z = torch.nn.functional.pad(sig, (1, 1, 1, 1))
+    up, down = z[..., :-2, 1:-1], z[..., 2:, 1:-1]
+    left, right = z[..., 1:-1, :-2], z[..., 1:-1, 2:]
+    one_m4a = float(_f32(1.0) - _f32(4.0) * _f32(alpha))
+    return sig * one_m4a + alpha * (up + down + left + right)
+
+
+def _nonlin(cum, nl_coeffs, fw: float, inv_fw: float) -> torch.Tensor:
+    """The cubic non-linearity of the charge clipped at the full well."""
+    c1, c2, c3 = nl_coeffs[0], nl_coeffs[1], nl_coeffs[2]
+    # minimum, not clamp_max: the same value, and at the full well the
+    # derivative 1/2 that jnp.minimum gives (clamp_max gives 1)
+    s = torch.minimum(cum, torch.full((), fw, device=cum.device))
+    q = s * inv_fw
+    return s * (1.0 - ((c3 * q + c2) * q + c1) * q)
+
+
+def _nonlin_slope(cum, nl_coeffs, fw: float, inv_fw: float) -> torch.Tensor:
+    """d :func:`_nonlin` / d cum per pixel: 1 - 2 c1 q - 3 c2 q^2 - 4 c3 q^3
+    below the full well, half that at it (``torch.minimum``'s split tie,
+    as ``jnp.minimum``'s) and 0 above."""
+    c1, c2, c3 = nl_coeffs[0], nl_coeffs[1], nl_coeffs[2]
+    q = torch.clamp_max(cum, fw) * inv_fw
+    slope = 1.0 - q * (2.0 * c1 + q * (3.0 * c2 + 4.0 * c3 * q))
+    return slope * torch.where(cum < fw, 1.0,
+                               torch.where(cum == fw, 0.5, 0.0))
+
+
 def _emit(cum, nl_coeffs, bias_map, inv_gain, z_rn, consts, *,
           non_linearity, ipc, bias, read_noise, scalar_gain) -> torch.Tensor:
     """The readout chain: nonlin(min(cum, fw)) -> IPC -> + bias ->
     + rn * z -> * inv_gain."""
     rn, fw, inv_fw, inv_gain_s, alpha = _scalars(consts)
-    sig = cum
-    if non_linearity:
-        c1, c2, c3 = nl_coeffs[0], nl_coeffs[1], nl_coeffs[2]
-        s = torch.clamp_max(sig, fw)
-        q = s * inv_fw
-        sig = s * (1.0 - ((c3 * q + c2) * q + c1) * q)
+    sig = _nonlin(cum, nl_coeffs, fw, inv_fw) if non_linearity else cum
     if ipc:
-        z = torch.nn.functional.pad(sig, (1, 1, 1, 1))
-        up, down = z[:, :-2, 1:-1], z[:, 2:, 1:-1]
-        left, right = z[:, 1:-1, :-2], z[:, 1:-1, 2:]
-        one_m4a = float(_f32(1.0) - _f32(4.0) * _f32(alpha))
-        sig = sig * one_m4a + alpha * (up + down + left + right)
+        sig = _ipc(sig, alpha)
     if bias:
         sig = sig + bias_map
     if read_noise:
@@ -293,20 +316,22 @@ def exposure_readout_plain(
     banded read step for every read, each band sampled first."""
     B, NR, W, S = bands.shape
     cum = torch.zeros((B, S, S), dtype=torch.float32, device=bands.device)
-    reads = torch.empty((B, NR, S, S), dtype=torch.float32,
-                        device=bands.device)
+    reads = []
     for k in range(NR):
         band = bands[:, k]
         if poisson:
             band = sample_band(seed, k, y0s[:, k], band, exact_poisson)
-        cum, reads[:, k] = read_step_banded_plain(
+        cum, dn = read_step_banded_plain(
             seed, k, y0s[:, k], dts[:, k], cum, band, bg_rate, bias_map,
             inv_gain, nl_coeffs, cr_pos[:, k], cr_q[:, k], consts,
             poisson=poisson, read_noise=read_noise,
             non_linearity=non_linearity, bias=bias, scalar_gain=scalar_gain,
             with_cr=with_cr, bg_poisson=bg_poisson, ipc=ipc,
             exact_poisson=exact_poisson)
-    return reads, cum
+        reads.append(dn)
+    # stacked, not written into a buffer: torch.func can then take its
+    # derivatives (_ExposureReadout)
+    return torch.stack(reads, dim=1), cum
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +462,198 @@ def _launch(fn, dev: torch.device, *args) -> None:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
+_FLAG_NAMES = ("poisson", "read_noise", "non_linearity", "bias",
+               "scalar_gain", "with_cr", "bg_poisson", "ipc", "exact_poisson")
+
+
+def _host_consts(consts) -> tuple[float, float, float, float]:
+    """The four readout scalars as host floats (refusing a device tensor,
+    which would make the host wait for the card)."""
+    if isinstance(consts, torch.Tensor) and consts.device.type != "cpu":
+        raise ValueError("consts are host scalars (a sequence of four floats "
+                         f"or a CPU tensor), got a tensor on {consts.device}")
+    return tuple(float(v) for v in np.asarray(consts, np.float32).tolist())
+
+
+def _launch_exposure_readout(seed, y0s, dts, bands, bg_rate, bias_map,
+                             inv_gain, nl_coeffs, cr_pos, cr_q, consts,
+                             flags: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """The value of :func:`exposure_readout`: the plain version for CPU
+    tensors, the kernel for CUDA tensors (plain tensors only: this runs
+    inside :class:`_ExposureReadout`'s forward, which sees primals)."""
+    B, NR, W, S = bands.shape
+    if bands.device.type == "cpu":
+        return exposure_readout_plain(
+            seed, y0s, dts, bands, bg_rate, bias_map, inv_gain, nl_coeffs,
+            cr_pos, cr_q, consts, **flags)
+    dev = _kernel_device(bands)
+    n_cr = cr_q.shape[-1]
+    f32, i32 = torch.float32, torch.int32
+    _check("seed", seed, (B, 2), i32, dev)
+    _check("y0s", y0s, (B, NR), i32, dev)
+    _check("dts", dts, (B, NR), f32, dev)
+    _check("bands", bands, (B, NR, W, S), f32, dev)
+    _check("bg_rate", bg_rate, (B, S, S), f32, dev)
+    _check("bias_map", bias_map, (S, S), f32, dev)
+    _check("inv_gain", inv_gain, (S, S), f32, dev)
+    _check("nl_coeffs", nl_coeffs, (3, S, S), f32, dev)
+    _check("cr_pos", cr_pos, (B, NR, 2, n_cr), i32, dev)
+    _check("cr_q", cr_q, (B, NR, n_cr), f32, dev)
+    if W > S:
+        raise ValueError(f"band width {W} exceeds the frame {S}")
+    reads = torch.empty((B, NR, S, S), dtype=f32, device=dev)
+    cum = torch.empty((B, S, S), dtype=f32, device=dev)
+    _launch(_library().wayne_exposure_readout, dev,
+            seed.data_ptr(), y0s.data_ptr(), dts.data_ptr(),
+            bands.data_ptr(), bg_rate.data_ptr(), bias_map.data_ptr(),
+            inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
+            cr_q.data_ptr(), reads.data_ptr(), cum.data_ptr(),
+            B, NR, W, S, n_cr, *_scalars(consts), _flag_bits(**flags))
+    exposure_readout.launches += 1
+    return reads, cum
+
+
+_INPUT_NAMES = ("seed", "y0s", "dts", "bands", "bg_rate", "bias_map",
+                "inv_gain", "nl_coeffs", "cr_pos", "cr_q")
+_DIFFERENTIABLE = (3, 4)                  # bands, bg_rate
+
+
+def _refuse(derived, flags: dict) -> None:
+    """Raise unless only ``bands`` and ``bg_rate`` (input positions 3, 4)
+    of ``derived`` (one truth value per input) carry a derivative, and
+    then only with the noise off."""
+    for i, name in enumerate(_INPUT_NAMES):
+        if derived[i] and i not in _DIFFERENTIABLE:
+            raise ValueError(f"exposure_readout is differentiable with "
+                             f"respect to bands and bg_rate only; {name} "
+                             "carries a derivative")
+    if any(derived) and (flags["poisson"] or flags["read_noise"]
+                         or flags["with_cr"]):
+        raise ValueError("the readout has derivatives only with Poisson "
+                         "sampling, read noise and cosmic rays off")
+
+
+def _charge_by_read(y0s, dts, bands, bg_rate, shape) -> list[torch.Tensor]:
+    """The charge after each read, (B, S, S) per read, by the plain
+    version's sums with the noise off (the expected background and band);
+    given the tangents of ``bands`` and ``bg_rate`` instead (None for
+    none), their tangents. ``shape``: the bands' (B, NR, W, S)."""
+    B, NR, W, S = shape
+    cum = torch.zeros((B, S, S), dtype=torch.float32, device=dts.device)
+    out = []
+    for k in range(NR):
+        if bg_rate is not None:
+            cum = cum + bg_rate * dts[:, k, None, None]
+        if bands is not None:
+            rows = (y0s[:, k].long()[:, None]
+                    + torch.arange(W, device=cum.device))[:, :, None]
+            rows = rows.expand(-1, W, S)
+            cum = cum.scatter(1, rows, torch.gather(cum, 1, rows)
+                              + bands[:, k])
+        out.append(cum)
+    return out
+
+
+class _ExposureReadout(torch.autograd.Function):
+    """:func:`exposure_readout` as a differentiable function of ``bands``
+    and ``bg_rate``. Its value comes from :func:`_launch_exposure_readout`
+    (the kernel on the card, the plain version on the CPU) on primal
+    tensors only, so no tangent can reach the kernel's pointers. The
+    derivatives exist with the noise off (no Poisson draw, read noise or
+    cosmic ray), where the chain is linear in those two inputs up to the
+    non-linearity at each read's charge:
+
+        dcum_k = dcum_{k-1} + dbg dt_k + dband_k at rows y0_k
+        ddn_k  = inv_gain IPC(nonlin'(cum_k) dcum_k)
+
+    ``jvp`` computes that directly: nonlin' once per read on the primal
+    charge (:func:`_nonlin_slope`), then one product, IPC and the gain on
+    the tangents. ``torch.func.jvp`` of the whole plain version, which
+    carries every step's tangent formula on the tangents, takes longer on
+    the retrieval's chunk (``chip_smoke.py`` phase 11b times both).
+    ``backward`` is ``torch.func.vjp`` of the plain version. A derivative on any other input raises. ``vmap`` folds a
+    mapped axis into the exposure axis: one launch for the whole batch."""
+
+    @staticmethod
+    def forward(seed, y0s, dts, bands, bg_rate, bias_map, inv_gain,
+                nl_coeffs, cr_pos, cr_q, consts, flags):
+        return _launch_exposure_readout(
+            seed, y0s, dts, bands, bg_rate, bias_map, inv_gain, nl_coeffs,
+            cr_pos, cr_q, consts, dict(zip(_FLAG_NAMES, flags)))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.consts = inputs[10]
+        ctx.flags = dict(zip(_FLAG_NAMES, inputs[11]))
+        _refuse(ctx.needs_input_grad, ctx.flags)
+        # an input without a tangent gets None in jvp, not zeros, so that
+        # jvp can tell it from one that has
+        ctx.set_materialize_grads(False)
+        ctx.save_for_forward(*inputs[:10])
+        ctx.save_for_backward(*inputs[:10])
+
+    @staticmethod
+    def _plain(ctx):
+        """The plain version as a function of (bands, bg_rate) at the
+        saved inputs, and those two inputs."""
+        ins = ctx.saved_tensors
+
+        def plain(bands, bg_rate):
+            return exposure_readout_plain(*ins[:3], bands, bg_rate, *ins[5:],
+                                          ctx.consts, **ctx.flags)
+        return plain, ins[3], ins[4]
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        _refuse([t is not None for t in tangents], ctx.flags)
+        _, y0s, dts, bands, bg_rate, _, inv_gain, nl_coeffs = \
+            ctx.saved_tensors[:8]
+        f, consts = ctx.flags, ctx.consts
+        _, fw, inv_fw, _, _ = _scalars(consts)
+        d_cums = _charge_by_read(y0s, dts, tangents[3], tangents[4],
+                                 bands.shape)
+        out = []
+        for cum, d in zip(_charge_by_read(y0s, dts, bands, bg_rate,
+                                          bands.shape), d_cums):
+            if f["non_linearity"]:
+                d = d * _nonlin_slope(cum, nl_coeffs, fw, inv_fw)
+            out.append(_emit(d, None, None, inv_gain, None, consts,
+                             non_linearity=False, ipc=f["ipc"], bias=False,
+                             read_noise=False,
+                             scalar_gain=f["scalar_gain"]))
+        return torch.stack(out, dim=1), d_cums[-1]
+
+    @staticmethod
+    def backward(ctx, g_reads, g_cum):
+        plain, bands, bg_rate = _ExposureReadout._plain(ctx)
+        out, pull = torch.func.vjp(plain, bands, bg_rate)
+        g = tuple(torch.zeros_like(o) if g is None else g
+                  for o, g in zip(out, (g_reads, g_cum)))
+        return (None, None, None, *pull(g),
+                None, None, None, None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, seed, y0s, dts, bands, bg_rate, bias_map,
+             inv_gain, nl_coeffs, cr_pos, cr_q, consts, flags):
+        n = info.batch_size
+        if any(d is not None for d in in_dims[5:8]):
+            raise ValueError("exposure_readout under vmap: bias_map, "
+                             "inv_gain and nl_coeffs are one plane per "
+                             "launch and cannot be mapped")
+
+        def fold(t, d):
+            t = t.movedim(d, 0) if d is not None else t.expand(n, *t.shape)
+            return t.reshape(-1, *t.shape[2:]).contiguous()
+
+        per_exp = [fold(t, d) for t, d in zip(
+            (seed, y0s, dts, bands, bg_rate), in_dims[:5])]
+        hits = [fold(t, d) for t, d in zip((cr_pos, cr_q), in_dims[8:10])]
+        reads, cum = _ExposureReadout.apply(
+            *per_exp, bias_map, inv_gain, nl_coeffs, *hits, consts, flags)
+        return ((reads.reshape(n, -1, *reads.shape[1:]),
+                 cum.reshape(n, -1, *cum.shape[1:])), (0, 0))
+
+
 def exposure_readout(
         seed: torch.Tensor, y0s: torch.Tensor, dts: torch.Tensor,
         bands: torch.Tensor, bg_rate: torch.Tensor, bias_map: torch.Tensor,
@@ -469,45 +686,22 @@ def exposure_readout(
         Poisson law (``ops.random.exact_poisson``; the kernel's second
         instantiation) instead of the three-regime sampler.
 
+    Differentiable with respect to ``bands`` and ``bg_rate`` (autograd,
+    ``torch.func.jvp``/``jacfwd``/``jacrev``/``vmap``) when Poisson
+    sampling, read noise and cosmic rays are off; a derivative on any
+    other input, or with the noise on, raises (:class:`_ExposureReadout`).
+
     Returns:
       (reads_dn (B, NR, S, S) in time order, final cum (B, S, S)).
     """
-    B, NR, W, S = bands.shape
+    NR = bands.shape[1]
     if NR > MAX_READS_PER_CALL:
         raise ValueError(f"at most {MAX_READS_PER_CALL} reads per call")
-    flags = dict(poisson=poisson, read_noise=read_noise,
-                 non_linearity=non_linearity, bias=bias,
-                 scalar_gain=scalar_gain, with_cr=with_cr,
-                 bg_poisson=bg_poisson, ipc=ipc, exact_poisson=exact_poisson)
-    if bands.device.type == "cpu":
-        return exposure_readout_plain(
-            seed, y0s, dts, bands, bg_rate, bias_map, inv_gain, nl_coeffs,
-            cr_pos, cr_q, consts, **flags)
-    dev = _kernel_device(bands)
-    n_cr = cr_q.shape[-1]
-    f32, i32 = torch.float32, torch.int32
-    _check("seed", seed, (B, 2), i32, dev)
-    _check("y0s", y0s, (B, NR), i32, dev)
-    _check("dts", dts, (B, NR), f32, dev)
-    _check("bands", bands, (B, NR, W, S), f32, dev)
-    _check("bg_rate", bg_rate, (B, S, S), f32, dev)
-    _check("bias_map", bias_map, (S, S), f32, dev)
-    _check("inv_gain", inv_gain, (S, S), f32, dev)
-    _check("nl_coeffs", nl_coeffs, (3, S, S), f32, dev)
-    _check("cr_pos", cr_pos, (B, NR, 2, n_cr), i32, dev)
-    _check("cr_q", cr_q, (B, NR, n_cr), f32, dev)
-    if W > S:
-        raise ValueError(f"band width {W} exceeds the frame {S}")
-    reads = torch.empty((B, NR, S, S), dtype=f32, device=dev)
-    cum = torch.empty((B, S, S), dtype=f32, device=dev)
-    _launch(_library().wayne_exposure_readout, dev,
-            seed.data_ptr(), y0s.data_ptr(), dts.data_ptr(),
-            bands.data_ptr(), bg_rate.data_ptr(), bias_map.data_ptr(),
-            inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
-            cr_q.data_ptr(), reads.data_ptr(), cum.data_ptr(),
-            B, NR, W, S, n_cr, *_scalars(consts), _flag_bits(**flags))
-    exposure_readout.launches += 1
-    return reads, cum
+    flags = (poisson, read_noise, non_linearity, bias, scalar_gain, with_cr,
+             bg_poisson, ipc, exact_poisson)
+    return _ExposureReadout.apply(seed, y0s, dts, bands, bg_rate, bias_map,
+                                  inv_gain, nl_coeffs, cr_pos, cr_q,
+                                  _host_consts(consts), flags)
 
 
 exposure_readout.launches = 0

@@ -23,6 +23,7 @@ from wayne_tpu_torch.ops.kepler import (
 )
 
 _N_RP_CTRL = 16
+_RP_SPAN_MIN = 2e-3   # the control grid's least span in Rp/Rs
 
 
 def _n(like: torch.Tensor) -> torch.Tensor:
@@ -60,13 +61,20 @@ def _gl_nodes(n: int) -> tuple[np.ndarray, np.ndarray]:
     return (0.5 * (x + 1.0)).astype(np.float32), (0.5 * w).astype(np.float32)
 
 
+@lru_cache(maxsize=16)
+def _gl_nodes_on(n: int, device: torch.device
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_gl_nodes` as tensors on ``device``, copied there once: a
+    copy per call would make the host wait for the device each time."""
+    s, w = _gl_nodes(n)
+    return torch.as_tensor(s, device=device), torch.as_tensor(w, device=device)
+
+
 def _occulted_flux(z: torch.Tensor, p: torch.Tensor, ld: torch.Tensor,
                    n_quad: int) -> torch.Tensor:
     """Flux blocked by the planet. ``z``, ``p``: (...); ``ld``: (..., 4)
     broadcastable against them."""
-    s_np, w_np = _gl_nodes(n_quad)
-    s = torch.as_tensor(s_np, device=z.device)
-    w = torch.as_tensor(w_np, device=z.device)
+    s, w = _gl_nodes_on(n_quad, z.device)
 
     z = torch.clamp_min(z, 1e-7)
     r_in = torch.clamp(p - z, 0.0, 1.0)
@@ -159,9 +167,19 @@ def transit_light_curve(times: torch.Tensor, orbit: OrbitParams,
         flux = transit_depth_curve(z[..., :, None], rp_over_rs[..., None, :],
                                    ld[..., None, :, :], n_quad)
     elif interp_channels and nl > _N_RP_CTRL:
-        rp_lo = torch.amin(rp_over_rs, dim=-1, keepdim=True)       # (..., 1)
-        rp_hi = torch.maximum(torch.amax(rp_over_rs, dim=-1, keepdim=True),
-                              rp_lo + 1e-4)
+        # The control grid spans rp's own range; its bounds carry no
+        # derivative, so a fitted channel at rp's minimum keeps its own
+        # column (the JAX package differentiates min/max and the clip
+        # there, and its per-channel columns come out identical). It spans
+        # at least _RP_SPAN_MIN: a depth column is a float32 flux difference
+        # across one grid step, which the JAX package's 1e-4 (a 6.7e-6
+        # step) leaves 1% off central finite differences at a flat spectrum
+        # (tests/test_torch_retrieval.py); interpolating across the wider
+        # steps moves a flux by under 5e-9.
+        rp_d = rp_over_rs.detach()
+        rp_lo = torch.amin(rp_d, dim=-1, keepdim=True)             # (..., 1)
+        rp_hi = torch.maximum(torch.amax(rp_d, dim=-1, keepdim=True),
+                              rp_lo + _RP_SPAN_MIN)
         # jnp.linspace's float32 recipe: start*(1-t) + stop*t, exact stop
         div = _N_RP_CTRL - 1
         t = (torch.arange(div, dtype=torch.float32, device=times.device)
@@ -170,11 +188,23 @@ def transit_light_curve(times: torch.Tensor, orbit: OrbitParams,
         f_ctrl = transit_depth_curve(z[..., :, None], ctrl[..., None, :],
                                      ld[..., None, None, :], n_quad)   # (..., NT, C)
         step = (rp_hi - rp_lo) / (_N_RP_CTRL - 1)
-        rp_c = torch.minimum(torch.maximum(rp_over_rs, rp_lo), rp_hi)
+        # hat weights; rp lies within [rp_lo, rp_hi], so the JAX package's
+        # clip of rp to them is the identity
         w = torch.clamp_min(
-            1.0 - torch.abs(rp_c[..., :, None] - ctrl[..., None, :])
+            1.0 - torch.abs(rp_d[..., :, None] - ctrl[..., None, :])
             / step[..., None], 0.0)
         w = w / torch.sum(w, dim=-1, keepdim=True)               # (..., NL, C)
+        # Their derivative is the slope of the grid segment [j, j + 1]
+        # holding rp (j its first node of non-zero weight; the last segment
+        # at the top node), carried by a term that is exactly zero in value:
+        # no tie subgradient of the clip, abs or clamp takes its place.
+        node = torch.arange(_N_RP_CTRL, device=w.device)
+        j = torch.clamp_max(torch.argmax((w > 0.0).to(torch.int32), dim=-1,
+                                         keepdim=True), _N_RP_CTRL - 2)
+        seg = ((node == j + 1).to(w.dtype) - (node == j).to(w.dtype)
+               ) / step[..., None]
+        lin = rp_over_rs[..., :, None] * seg
+        w = w + (lin - lin.detach())
         flux = torch.matmul(f_ctrl, w.transpose(-1, -2))         # (..., NT, NL)
     else:
         flux = transit_depth_curve(z[..., :, None], rp_over_rs[..., None, :],

@@ -1222,8 +1222,10 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip`` with its derivative: ``minimum(maximum(x, lo), hi)``
     splits a tie at either bound, 1/2 to each side, where ``torch.clamp``
     gives 1. The fits differentiate through these clips."""
-    lo = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    # filled on the device: a tensor made from a host scalar would be a
+    # copy the host waits for
+    lo = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi = torch.full((), hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo), hi)
 
 

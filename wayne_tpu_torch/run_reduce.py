@@ -16,14 +16,15 @@ Usage:
         [--n-chan 8] [--mode transit|eclipse|phase]
         [--estimator cds|ramp] [--extract box|optimal] [--align]
         [--detrend divide-white|ramp|recte|none] [--fit-geometry]
-        [--clip-sigma K] [--sky-fit] [--direct-image] [--wl-range LO:HI]
-        [--rows Y0:Y1 --cols X0:X1 --bg-rows B0:B1]
+        [--clip-sigma K] [--sky-fit] [--mcmc [N]] [--direct-image]
+        [--wl-range LO:HI] [--rows Y0:Y1 --cols X0:X1 --bg-rows B0:B1]
         [--save-spectra] [--save-lc] [--plot] [-o reduced.json] [--cpu]
 
 Files are read on the host; every step after that runs on the CUDA card
 (without one it fails unless ``--cpu`` is given). The JSON report carries
-the JAX package's keys and rounding. ``--mcmc`` (posterior sampling) needs
-``mcmc.py``, which is not ported yet: it raises NotImplementedError.
+the JAX package's keys and rounding. ``--mcmc [N]`` adds the ensemble-MCMC
+posteriors of the white curve and of every channel (``mcmc.py``, N steps,
+transit and eclipse modes) under the JAX package's report keys.
 """
 
 from __future__ import annotations
@@ -400,6 +401,56 @@ def compare_reports(a: dict, b: dict, path: str = "") -> list[str]:
     return out
 
 
+def _posteriors(args, white, chan, t, orbit, ld, ld_chan, rp0, rp_hat,
+                depth_weights, t0_ref_shift_s):
+    """``--mcmc``: the white curve's joint posterior and every channel's
+    depth posterior (one ensemble batch), seeded as the JAX package seeds
+    them. Returns (the report's ``white_posterior`` block, the channel
+    posteriors)."""
+    from wayne_tpu_torch.mcmc import (
+        sample_channel_posteriors, sample_white_posterior)
+
+    eclipse = args.mode == "eclipse"
+    # keep at least half the chain after burn-in for short runs
+    n_burn = max(0, min(max(args.mcmc // 4, 100), args.mcmc // 2,
+                        args.mcmc - 1))
+    wpost = sample_white_posterior(
+        white, t, orbit, ld, rp0, 20250817, n_steps=args.mcmc,
+        n_burn=n_burn, fit_geometry=args.fit_geometry, eclipse=eclipse,
+        weights=depth_weights)
+    chan_post = sample_channel_posteriors(
+        chan, t, orbit, ld_chan, rp_hat if eclipse else rp0, 43,
+        n_steps=args.mcmc, n_burn=n_burn, eclipse=eclipse, rp_geom=rp0,
+        weights=depth_weights)
+    dkey = "fp_over_fs" if eclipse else "rp_over_rs"
+    report = {
+        "n_steps": args.mcmc, "n_burn": n_burn,
+        f"{dkey}_median": round(float(wpost.rp_median), 7),
+        "depth_plus": round(float(wpost.rp_plus), 7),
+        "depth_minus": round(float(wpost.rp_minus), 7),
+        "acceptance": round(float(wpost.acceptance), 3),
+        # convergence: the worst split R-hat and the smallest ESS over
+        # every sampled dimension
+        "rhat_max": round(float(wpost.rhat.max()), 4),
+        "ess_min": round(float(wpost.ess.min()), 1),
+    }
+    if args.fit_geometry:
+        samp = wpost.samples.cpu().numpy()
+        q = lambda v: [round(float(x), 4) for x in
+                       np.percentile(v, [16, 50, 84])]
+        report["geometry_percentiles_16_50_84"] = {
+            "t0_offset_s": q(samp[:, 6] + t0_ref_shift_s),
+            "sma_over_rs": q(samp[:, 7]),
+            "inclination_deg": q(np.rad2deg(np.arccos(
+                np.clip(samp[:, 8], 0.0, 0.6)))),
+        }
+    print(f"white posterior: depth = {report[dkey + '_median']:.6f} "
+          f"+{report['depth_plus']:.6f} -{report['depth_minus']:.6f} "
+          f"(acc {report['acceptance']:.2f}; the channel posteriors "
+          "sampled as one ensemble batch)")
+    return report, chan_post
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="wayne_tpu_torch.run_reduce",
@@ -454,7 +505,9 @@ def _parser() -> argparse.ArgumentParser:
                              "per-column row median")
     parser.add_argument("--mcmc", type=int, nargs="?", const=1500,
                         default=0, metavar="N_STEPS",
-                        help="posterior sampling (not ported yet: raises)")
+                        help="also sample the white and per-channel "
+                             "depth posteriors (Goodman-Weare ensemble "
+                             "MCMC, N steps; bare flag: 1500)")
     parser.add_argument("--no-dq", action="store_true",
                         help="ignore the DQ planes (no read repair)")
     parser.add_argument("--no-nlincorr", action="store_true",
@@ -504,10 +557,6 @@ def main(argv: list[str] | None = None) -> int:
         out_of_transit_mask)
 
     dev = resolve_device("cpu" if args.cpu else None)
-    if args.mcmc:
-        raise NotImplementedError(
-            "run_reduce --mcmc samples posteriors with mcmc.py, which the "
-            "port has not taken over yet (ROADMAP Queue A item 9)")
     cfg = load_yaml(args.parameter_file)
     paths = collect_visit(args.visit_dir)
     hdr0, _, _ = read_ima(paths[0])
@@ -740,6 +789,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"exposure(s) at {args.clip_sigma} sigma: {clipped}")
 
     white_fit_report = None
+    t0_ref_shift_s = 0.0   # fitted-ephemeris offset vs the YAML zero point
     phase_extra = None
     rp_sig_rel = None          # divide-white shape-error component
     sigma_white_dw = None      # divide-white common-mode (white-fit) sigma
@@ -869,6 +919,9 @@ def main(argv: list[str] | None = None) -> int:
                           "above used the stale ephemeris; re-run with "
                           "the fitted t0 in the YAML for clean channels")
                 orbit = wfit.orbit        # held for the channel fits
+                # the posteriors sample around this fitted ephemeris; their
+                # t0 offsets are shifted back to the YAML's zero point
+                t0_ref_shift_s = float(wfit.t0_offset_s)
             chan = ramp_detrend(chan, wfit, t, orbit)
             white_fit_report = {
                 "rp_over_rs": round(float(wfit.rp), 6),
@@ -931,6 +984,16 @@ def main(argv: list[str] | None = None) -> int:
             rp_sig = torch.sqrt(rp_sig ** 2 + sigma_white_dw ** 2)
         value_key, sigma_key = "rp_over_rs", "rp_sigma"
 
+    white_post_report, chan_post = None, None
+    if args.mcmc and args.mode == "phase":
+        raise SystemExit("--mcmc is not wired for --mode phase (the "
+                         "closed-form fit already returns sigmas)")
+    if args.mcmc:
+        white_post_report, chan_post = _posteriors(
+            args, white, chan, t, orbit, ld, ld_chan, rp0, rp_hat,
+            depth_weights, t0_ref_shift_s)
+    mcmc_prefix = "fp" if args.mode == "eclipse" else "rp"
+
     # a dead channel is MARKED unusable, not left to an absurd sigma
     if args.mode == "transit":
         constrained = constrained_mask(rp_hat, rp_sig)
@@ -973,6 +1036,8 @@ def main(argv: list[str] | None = None) -> int:
         "aligned": bool(args.align),
         **({"x_shifts_px": [round(float(s), 4) for s in shifts]}
            if shifts is not None else {}),
+        **({"white_posterior": white_post_report}
+           if white_post_report is not None else {}),
         **({f"{sigma_key}_common": round(float(sigma_white_dw), 6)}
            if sigma_white_dw is not None else {}),
         "channels": [
@@ -983,7 +1048,18 @@ def main(argv: list[str] | None = None) -> int:
              **({f"{sigma_key}_rel": round(float(rp_sig_rel[i]), 6)}
                 if rp_sig_rel is not None else {}),
              "constrained": bool(constrained[i]),
-             **(phase_extra[i] if phase_extra is not None else {})}
+             **(phase_extra[i] if phase_extra is not None else {}),
+             **({f"{mcmc_prefix}_mcmc_median":
+                     round(float(chan_post.rp_median[i]), 7),
+                 f"{mcmc_prefix}_mcmc_plus":
+                     round(float(chan_post.rp_plus[i]), 7),
+                 f"{mcmc_prefix}_mcmc_minus":
+                     round(float(chan_post.rp_minus[i]), 7),
+                 f"{mcmc_prefix}_mcmc_rhat":
+                     round(float(chan_post.rhat[i]), 4),
+                 f"{mcmc_prefix}_mcmc_ess":
+                     round(float(chan_post.ess[i]), 1)}
+                if chan_post is not None else {})}
             for i in range(args.n_chan)],
         "white_lc": [round(float(v), 6) for v in white_np],
         **({"channel_lc": [[round(float(chan_np[i, j]), 6)
