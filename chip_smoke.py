@@ -111,7 +111,15 @@ process per source, in parallel, linked into one library) and then:
    set-up, reading, LM and covariance, the launch calls of one LM pass;
    (c) ``run_retrieve --program --mcmc 1000`` on phase 7's program: the t0
    offsets' drift within 6 sigma of the injected, the posterior printed.
-   ``python3 chip_smoke.py --phases 9,10,11`` runs those phases alone
+12. the (mc, exp) mesh (see ``phase_mesh``): the card count and
+   ``make_mesh()``'s shape; ``generate(mesh=make_mesh(["cuda:0"] * 4))`` of
+   the headline visit's first orbit against the one-device files, byte for
+   byte; ``generate_dataset`` of the uncut visit x 4 realisations with
+   recovered labels on a (2, 2) mesh of cuda:0 against ``mesh=None``, bit
+   for bit, B1 held on the first sharded batch, both rates in turns; with
+   more than one card, the same over ``make_mesh()``; ``run_visit
+   --all-devices`` on a 128^2 copy of the headline YAML.
+   ``python3 chip_smoke.py --phases 9,10,11,12`` runs those phases alone
    (phase 11 without 10 writes its visit and program itself) and prints no
    result lines.
 
@@ -488,13 +496,17 @@ def first_call(module, name: str, run, index: int = 0) -> tuple:
     """``run()``'s result and the arguments, by name, of the call number
     ``index`` (the first by default) of ``module.name`` during ``run()``."""
     import inspect
+    import threading
 
     real, seen, calls = getattr(module, name), [], [0]
+    lock = threading.Lock()     # a mesh's worker threads call it too
 
     def record(*args, **kw):
-        if calls[0] == index:
-            seen.append(inspect.signature(real).bind(*args, **kw).arguments)
-        calls[0] += 1
+        with lock:
+            if calls[0] == index:
+                seen.append(
+                    inspect.signature(real).bind(*args, **kw).arguments)
+            calls[0] += 1
         return real(*args, **kw)
 
     setattr(module, name, record)
@@ -2925,8 +2937,218 @@ def phase_inference(card: str, root: str) -> int:
     return launches, twin
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the (mc, exp) mesh
+# ---------------------------------------------------------------------------
+
+MESH_CHUNK = 4              # 12b: exposures per launch on each position
+MESH_N_MC = 4               # 12c: realisations, one chunk file
+
+
+def _same_files(a: list, b: list) -> bool:
+    """Every file of ``a`` equals its counterpart in ``b`` byte for byte."""
+    def read(p):
+        with open(p, "rb") as fh:
+            return fh.read()
+    return len(a) == len(b) > 0 and all(
+        os.path.basename(x) == os.path.basename(y) and read(x) == read(y)
+        for x, y in zip(a, b))
+
+
+def phase_mesh(card: str) -> int:
+    """The (mc, exp) mesh on the card: (a) the card count and
+    ``make_mesh()``'s shape; (b) ``generate(mesh=make_mesh(["cuda:0"] *
+    4), chunk=4)`` of the headline visit's first orbit against
+    ``generate(chunk=4)``, every ima file byte for byte, B1's launches of
+    both; (c) ``generate_dataset`` of the uncut headline visit x 4
+    realisations with ``--recover 8``'s labels on ``make_mesh(["cuda:0"]
+    * 4, mc_shards=2)`` against ``mesh=None``, both at chunk 43 (= n_exp /
+    d_exp, the same batches): spectra and labels bit for bit, B1 against
+    its plain version on the first sharded batch, exposures/s of both in
+    turns; (d) with more than one card, (b) and (c) again over
+    ``make_mesh()`` against the same one-device output; (e) ``run_visit
+    --all-devices`` on a 128^2 copy of the headline YAML. Returns B1's
+    launches."""
+    import numpy as np
+    import torch
+
+    import wayne_tpu_torch.parallel.dataset as dataset
+    from wayne_tpu_torch import run_dataset, run_visit
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.parallel import make_mesh
+
+    launches = 0
+    t_phase = time.time()
+    n_cards = torch.cuda.device_count()
+    every = make_mesh()
+    print(f"phase 12a: torch.cuda.device_count() = {n_cards}; make_mesh() "
+          f"is {every.shape} over {[str(d) for d in every.devices.flat]} "
+          f"[{card}]")
+    four = make_mesh(["cuda:0"] * 4)
+    meshes = [("12b", "4 x cuda:0", four)]
+    if n_cards > 1:
+        meshes.append(("12d", f"every card ({n_cards})", every))
+    else:
+        print("phase 12d: one card, so no mesh over more than one card")
+
+    # (b) generate() of the first orbit, one device against each mesh
+    cfg = load_yaml(HEADLINE)
+    cfg.n_orbits = ORBITS
+    obs = Observation(cfg)
+    n = obs.plan.n_exposures
+    with tempfile.TemporaryDirectory() as root:
+        def gen(name, mesh):
+            ro.exposure_readout.launches = 0
+            paths, wall = _synced(lambda: obs.generate(
+                os.path.join(root, name), chunk=MESH_CHUNK, mesh=mesh,
+                progress=lambda s: None))
+            return paths, ro.exposure_readout.launches, wall
+
+        one, b1_one, wall_one = gen("one", None)
+        launches += b1_one
+        for label, what, mesh in meshes:
+            d = mesh.devices.size
+            paths, b1, wall = gen(label, mesh)
+            launches += b1
+            step = MESH_CHUNK * d
+            want = 1 + d * math.ceil(n / step)
+            check(_same_files(one, paths) and len(paths) == n
+                  and b1 == want and b1_one == 1 + math.ceil(n / MESH_CHUNK),
+                  f"phase {label}: generate(mesh={mesh.shape} on {what}, "
+                  f"chunk={MESH_CHUNK}) of {os.path.relpath(HEADLINE, HERE)} "
+                  f"cut to {ORBITS} orbit: {len(paths)} ima files byte for "
+                  f"byte = generate(chunk={MESH_CHUNK}); B1 launches {b1} "
+                  f"(direct image + {d} positions x "
+                  f"{math.ceil(n / step)} steps) against {b1_one} on one "
+                  f"device; {wall:.3f} s against {wall_one:.3f} s [{card}]")
+    del obs
+
+    # (c) generate_dataset of the uncut visit: run_dataset's own inputs
+    calls = []
+    real = dataset.generate_dataset
+    dataset.generate_dataset = lambda *a, **kw: calls.append((a, kw)) or {
+        "chunks": []}
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_dataset.main(
+                ["-p", HEADLINE, "-o", os.devnull, "--n-mc", str(MESH_N_MC),
+                 "--chunk-mc", str(MESH_N_MC), "--rp-sigma", "0.002",
+                 "--recover", str(RECOVER_CHAN)])
+    finally:
+        dataset.generate_dataset = real
+    (args, kw), = calls
+    n_exp = args[0].n
+    kw = dict(kw, progress=None, device=None)
+    two_by_two = make_mesh(["cuda:0"] * 4, mc_shards=2)
+    dmeshes = [("12c", "4 x cuda:0", two_by_two)]
+    if n_cards > 1:
+        if MESH_N_MC % every.shape["mc"] == 0 and \
+                n_exp % every.shape["exp"] == 0:
+            dmeshes.append(("12d", f"every card ({n_cards})", every))
+        else:
+            print(f"phase 12d: make_mesh() {every.shape} does not divide "
+                  f"{MESH_N_MC} realisations x {n_exp} exposures: no "
+                  "dataset over every card")
+
+    def run(out, mesh, chunk):
+        ro.exposure_readout.launches = 0
+        _, wall = _synced(lambda: real(
+            *args[:3], out, **dict(kw, mesh=mesh, chunk=chunk)))
+        return ro.exposure_readout.launches, wall
+
+    def chunk_file(out) -> dict:
+        with np.load(os.path.join(out, "chunk_0000.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    with tempfile.TemporaryDirectory() as root:
+        ones = {}               # chunk -> the one-device run's arrays, B1
+        for label, what, mesh in dmeshes:
+            chunk = n_exp // mesh.shape["exp"]     # the same batches
+            if chunk not in ones:
+                out = os.path.join(root, f"one_{chunk}")
+                b1_one, _ = run(out, None, chunk)
+                launches += b1_one
+                ones[chunk] = chunk_file(out), b1_one
+            want, b1_one = ones[chunk]
+            out = os.path.join(root, label)
+            (b1, _), recorded = recorded_readout(lambda: run(out, mesh,
+                                                             chunk))
+            launches += b1
+            got = chunk_file(out)
+            with open(os.path.join(out, "manifest.json")) as fh:
+                manifest = json.load(fh)
+            check(got.keys() == want.keys() and "recovered_rp" in got
+                  and all(np.array_equal(got[k], want[k]) for k in want)
+                  and manifest["mesh"] == list(mesh.devices.shape)
+                  and b1 == b1_one == MESH_N_MC * mesh.shape["exp"],
+                  f"phase {label}: generate_dataset(mesh={mesh.shape} on "
+                  f"{what}, chunk={chunk}) of the uncut visit, {MESH_N_MC} "
+                  f"realisations x {n_exp} exposures, recover "
+                  f"{RECOVER_CHAN} channels: spectra "
+                  f"{got['spectra_e'].shape} and every label bit for bit = "
+                  f"mesh=None at the same chunk; B1 launches {b1} and "
+                  f"{b1_one}; manifest mesh {manifest['mesh']} [{card}]")
+            if label == "12c":
+                hold_recorded(ro, recorded, "phase 12c",
+                              "the first sharded batch")
+            del recorded
+        # the rates, in turns: the (2, 2) mesh, a (1, 1) mesh (one worker
+        # thread: the executor's own cost), no mesh, and back
+        chunk = n_exp // two_by_two.shape["exp"]
+        one_pos = make_mesh(["cuda:0"])
+        runs = {"(2, 2) mesh on 4 x cuda:0": two_by_two,
+                "(1, 1) mesh on cuda:0": one_pos, "no mesh": None}
+        spent = {}
+        for label in [*runs, *reversed(runs)]:
+            with tempfile.TemporaryDirectory(dir=root) as out:
+                _, wall = run(out, runs[label], chunk)
+            spent.setdefault(label, []).append(wall)
+        n_tot = MESH_N_MC * n_exp
+        for label in runs:
+            rates = ", ".join(f"{n_tot / w:.2f}" for w in spent[label])
+            print(f"timing [{card}]: generate_dataset with recover "
+                  f"{RECOVER_CHAN}, {MESH_N_MC} realisations x {n_exp} "
+                  f"exposures at chunk {chunk}, {label}: {rates} "
+                  f"exposures/s (in turns)")
+
+    # (e) run_visit --all-devices on a 128^2 copy of the headline YAML, the
+    # reference position moved so that the spectrum lands on the frame
+    import yaml
+
+    with tempfile.TemporaryDirectory() as d:
+        with open(HEADLINE) as fh:
+            pars = yaml.safe_load(fh)
+        pars["observation"].update(subarray=128, x_ref=-55.0, y_ref=20.0)
+        yml = os.path.join(d, "pars128.yml")
+        with open(yml, "w") as fh:
+            yaml.safe_dump(pars, fh)
+        n128 = Observation(load_yaml(yml)).plan.n_exposures
+        out = os.path.join(d, "out")
+        said = io.StringIO()
+        ro.exposure_readout.launches = 0
+        with contextlib.redirect_stdout(said):
+            rc, wall = _synced(lambda: run_visit.main(
+                ["-p", yml, "-o", out, "--all-devices", "--chunk",
+                 str(CHUNK)]))
+        b1 = ro.exposure_readout.launches
+        launches += b1
+        lines = said.getvalue().splitlines()
+        files = [f for f in os.listdir(out) if f.endswith("_ima.fits")]
+        sharding = f"sharding exposures over {n_cards} devices"
+        check(rc == 0 and sharding in lines and len(files) == n128
+              and b1 == 1 + n_cards * math.ceil(n128 / (CHUNK * n_cards)),
+              f"phase 12e: python -m wayne_tpu_torch.run_visit --all-devices "
+              f"on a 128^2 copy of the headline YAML: '{sharding}', "
+              f"{len(files)} ima files of {n128}, {b1} B1 launches, "
+              f"{wall:.3f} s [{card}]")
+    print(f"phase 12 took {time.time() - t_phase:.1f} s")
+    return launches
+
+
 def partial_run(only: set, card: str) -> int:
-    """Phases 9, 10 and 11 alone (``--phases``); phase 10 then simulates
+    """Phases 9, 10, 11 and 12 alone (``--phases``); phase 10 then simulates
     the phase-curve visit itself, and phase 11 without phase 10 writes the
     uncut headline visit (``run_visit``) and the three-visit program
     (``run_program``) itself. Prints no result lines."""
@@ -2954,6 +3176,8 @@ def partial_run(only: set, card: str) -> int:
                 run_program.main(["-p", PROGRAM, "-o", os.path.join(
                     root, "program"), "--chunk", str(CHUNK)])
             phase_inference(card, root)
+    if 12 in only:
+        phase_mesh(card)
     check("jax" not in sys.modules, "jax was not imported")
     print(f"partial run of phases {sorted(only)}: no result lines")
     return 0
@@ -3022,6 +3246,7 @@ def main(argv: list[str] | None = None) -> int:
     launches += b1
     whole["max_abs_err"] = max(whole["max_abs_err"], twin["max_abs_err"])
     keep.cleanup()
+    launches += phase_mesh(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

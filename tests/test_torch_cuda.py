@@ -1040,3 +1040,119 @@ def test_channel_posteriors_on_the_card_match_cpu(card):
     w_b = 0.5 * (b.rp_minus + b.rp_plus)
     assert bool(((a.rp_median.cpu() - b.rp_median).abs() <= 0.25 * w_b).all())
     assert bool(((w_a / w_b - 1.0).abs() <= 0.25).all())
+
+
+# --- the (mc, exp) mesh -----------------------------------------------------
+
+@pytest.mark.cuda
+def test_sharded_ensemble_on_the_card_equals_one_device(card):
+    """simulate_ensemble_spectra on make_mesh(["cuda:0"] * 2) (two worker
+    threads on one card) against mesh=None, a 64^2 visit with the noise
+    on, chunk = n_exp / d_exp on both: bit for bit, B1 once per batch."""
+    from wayne_tpu_torch.parallel import make_mesh, mc_scenes
+    from wayne_tpu_torch.parallel.ensemble import simulate_ensemble_spectra
+
+    obs = Observation(config_from_dict(dict(DATASET, exposures_per_orbit=4,
+                                            noise={"preset": "all"})),
+                      device="cuda")
+    ens = mc_scenes(obs.scenes, 4, seed=5)
+    mesh = make_mesh(["cuda:0"] * 2)                 # (2, 1)
+    assert mesh.shape == {"mc": 2, "exp": 1}
+    exposure_readout.launches = 0
+    one = simulate_ensemble_spectra(ens, obs.tables, obs.static, chunk=4)
+    sharded = simulate_ensemble_spectra(ens, obs.tables, obs.static, mesh,
+                                        chunk=4)
+    torch.cuda.synchronize()
+    assert exposure_readout.launches == 4 + 4
+    assert sharded.device == torch.device("cuda", 0)
+    assert torch.equal(sharded, one) and bool(torch.isfinite(one).all())
+
+
+@pytest.mark.cuda
+def test_generate_on_a_mesh_writes_the_one_device_files(card, tmp_path):
+    """Observation.generate(mesh=make_mesh(["cuda:0"] * 4)) with the
+    on-device uint16 copy path (quantize_adc) writes the files of the
+    one-device run byte for byte: each shard's pinned copy is waited for
+    by its device's event before the writer reads it."""
+    from wayne_tpu_torch.parallel import make_mesh
+
+    obs = Observation(config_from_dict(dict(TINY, quantize_adc=True,
+                                            exposures_per_orbit=9)),
+                      device="cuda")
+    one = obs.generate(str(tmp_path / "one"), chunk=2,
+                       progress=lambda s: None)
+    sharded = obs.generate(str(tmp_path / "mesh"), chunk=2,
+                           mesh=make_mesh(["cuda:0"] * 4),
+                           progress=lambda s: None)
+    assert len(one) == len(sharded) == 9
+    for a, b in zip(one, sharded):
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            assert fa.read() == fb.read(), os.path.basename(a)
+
+
+# (lam, z) where the Cornish-Fisher sum lands within an ulp of a
+# half-integer (the same table as tests/test_torch_readout.py, which holds
+# the CPU): a quotient by 6 taken as a multiply by float32(1/6) rounds them
+# to the other integer.
+HALF_INTEGER_DRAWS = [
+    (41.329315185546875, -0.41872110962867737),
+    (12.244315147399902, 0.12001407146453857),
+    (12.309959411621094, 0.10118179023265839),
+    (6.654434680938721, 0.004740480333566666),
+    (8.736632347106934, -0.023702245205640793),
+    (28.831836700439453, -0.030789947137236595),
+    (19.979833602905273, 0.15278778970241547),
+    (37.24016571044922, -2.7600533962249756),
+]
+
+
+@pytest.mark.cuda
+def test_fast_poisson_on_the_card_rounds_as_the_kernel(card):
+    """The plain three-regime sampler on CUDA tensors gives the CPU's draws
+    (one correctly rounded division by 6, as the kernels take it) where the
+    skew term's last ulp moves round()."""
+    from wayne_tpu_torch.ops.random import fast_poisson
+
+    lam, z = (torch.tensor(c) for c in zip(*HALF_INTEGER_DRAWS))
+    u = torch.full_like(lam, 0.5)
+    want = fast_poisson(lam, u, z)
+    got = fast_poisson(lam.to(card), u.to(card), z.to(card))
+    assert torch.equal(got.cpu(), want), (got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_kernel_matches_plain_bit_for_bit_over_two_billion_draws(card):
+    """B1 = its plain version bit for bit with every noise on, over 64
+    launches of 8 exposures x 16 reads at 512^2 whose background and band
+    sit in the Cornish-Fisher regime (3 <= lam < 100): 2.1e9 such draws,
+    where a plain version one ulp off in the skew term (about one draw in
+    3e8) would differ by one electron a few times."""
+    B, NR, W, S, n_cr = 8, 16, 32, 512, 20
+    g = torch.Generator(device=card).manual_seed(11)
+    u = lambda *shape: torch.rand(shape, generator=g, device=card)
+    dts = torch.full((B, NR), 2.9, device=card)
+    dts[:, 0] = 0.0
+    bands = 3.0 + 97.0 * u(B, NR, W, S)
+    bands[:, 0] = 0.0
+    y0s = (torch.randint(0, (S - W) // 8 + 1, (B, NR), generator=g,
+                         device=card) * 8).to(torch.int32)
+    bg = (3.0 + 97.0 * u(B, S, S)) / 2.9
+    cr_pos = torch.randint(0, S, (B, NR, 2, n_cr), generator=g,
+                           device=card).to(torch.int32)
+    cr_q = 1000.0 * u(B, NR, n_cr)
+    cr_q[:, 0] = 0.0
+    bias = 2500.0 + 12.0 * u(S, S)
+    inv_gain = 1.0 / (2.5 * (1 + 0.003 * u(S, S)))
+    nl = torch.tensor([0.012, 0.012, 0.016], device=card)[:, None, None] \
+        * (1 + 0.03 * u(3, S, S))
+    consts = (20.0, 78000.0, 2.5, 0.015)
+    for launch in range(64):
+        seed = torch.randint(-2**31, 2**31 - 1, (B, 2), generator=g,
+                             device=card).to(torch.int32)
+        args = (seed, y0s, dts, bands, bg, bias, inv_gain, nl, cr_pos, cr_q,
+                consts)
+        got, cum = exposure_readout(*args, ipc=True)
+        want, cum_w = exposure_readout_plain(*args, ipc=True)
+        diff = got != want
+        assert not bool(diff.any()) and torch.equal(cum, cum_w), (
+            launch, int(diff.sum()), float((got - want).abs().max()))

@@ -32,6 +32,7 @@ from wayne_tpu_torch.parallel.dataset import (
 from wayne_tpu_torch.parallel.ensemble import (
     mc_scenes, simulate_ensemble_spectra,
 )
+from wayne_tpu_torch.parallel.mesh import make_mesh as make_mesh_t
 from wayne_tpu_torch.parallel.torch_data import WayneSpectraDataset
 from wayne_tpu_torch.pytree import tree_map
 from wayne_tpu_torch.reduction import extract_spectra_cr
@@ -238,8 +239,9 @@ def test_generate_dataset_writes_resumes_and_loads(tmp_path):
     assert set(manifest) == {"n_mc", "chunk_mc", "n_exp", "subarray", "seed",
                              "dq_aware", "labels", "chunk_inputs_sha",
                              "recovered", "recover", "nlincorr", "keys",
-                             "chunks"}
+                             "mesh", "chunks"}
     assert manifest["keys"] == "wayne_tpu_torch" and manifest["nlincorr"]
+    assert manifest["mesh"] == [1, 1]          # no mesh: one device
     with np.load(tmp_path / "chunk_0001.npz") as z:
         assert set(z.files) == {"spectra_e", "label_rp_scale"}
         assert z["spectra_e"].shape == (2, 4, S)
@@ -410,15 +412,18 @@ def test_run_dataset_unported_flags_raise(tmp_path):
 
 def test_jax_style_positional_mesh_cannot_switch_estimator():
     """The JAX signature is (scenes, tables, cfg, mesh, ramp=...): a call
-    written for it either raises (a mesh) or returns the CDS spectra (None
-    in mesh's place), never up-the-ramp slopes."""
+    written for it either raises (a JAX mesh: TypeError naming the port's
+    make_mesh) or returns the CDS spectra (None, or the port's own mesh, in
+    mesh's place), never up-the-ramp slopes."""
     ens = mc_scenes(_visit_t(2), 1)
     cds = simulate_ensemble_spectra(ens, TABLES_T, CFG_T, chunk=2)
     mesh = make_mesh(jax.devices()[:1])
-    with pytest.raises(NotImplementedError, match="Queue A6"):
+    with pytest.raises(TypeError, match="wayne_tpu_torch.parallel.make_mesh"):
         simulate_ensemble_spectra(ens, TABLES_T, CFG_T, mesh)
     assert torch.equal(simulate_ensemble_spectra(ens, TABLES_T, CFG_T, None,
                                                  chunk=2), cds)
+    assert torch.equal(simulate_ensemble_spectra(
+        ens, TABLES_T, CFG_T, make_mesh_t(["cpu"]), chunk=2), cds)
     with pytest.raises(TypeError):         # ramp is keyword-only
         simulate_ensemble_spectra(ens, TABLES_T, CFG_T, None, True)
     ramp = simulate_ensemble_spectra(ens, TABLES_T, CFG_T, ramp=True,

@@ -1,6 +1,8 @@
 """The port stands alone: importing it (every module) pulls in neither JAX
-nor the JAX package, its entry points run on CUDA by default, and its
-smoke run refuses to start without a card or without the repository."""
+nor the JAX package, nor triton, and builds no kernel; its subpackages
+export the JAX package's names; its entry points run on CUDA by default,
+and its smoke run refuses to start without a card or without the
+repository."""
 
 import json
 import os
@@ -15,6 +17,26 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# what each subpackage __init__ of the JAX package exports
+# (wayne_tpu/{io,models,ops,parallel,utils}/__init__.py)
+JAX_EXPORTS = {
+    "io": ["FitsHDU", "read_fits", "write_fits", "write_ima", "read_ima",
+           "cr_dq_planes", "saturation_dq", "static_dq_plane",
+           "default_primary_header", "DQ_COSMIC_RAY", "DQ_SATURATED",
+           "DQ_HOT_PIXEL", "DQ_REF_PIXEL"],
+    "models": ["Grism", "G102", "G141", "WFC3IRDetector", "Star", "Planet"],
+    "ops": ["eccentric_anomaly", "true_anomaly", "projected_separation",
+            "orbital_phase_angle", "claret_intensity", "claret_total_flux",
+            "transit_depth_curve", "transit_light_curve",
+            "uniform_disk_hidden_frac", "ierf", "pixel_fractions_static",
+            "pixel_fractions_moving", "TraceParams", "trace_params",
+            "wl_to_x", "x_to_wl", "x_deposit_matrix", "flat_plane"],
+    "parallel": ["make_mesh", "shard_scenes", "mc_scenes",
+                 "simulate_ensemble_spectra", "extract_spectra"],
+    "utils": ["rebin_spectrum", "interp_to_grid", "crop_spectrum",
+              "blackbody_flam_um"],
+}
+
 _PROBE = """
 import importlib, json, pkgutil, sys
 import wayne_tpu_torch
@@ -22,18 +44,25 @@ names = ['wayne_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
     wayne_tpu_torch.__path__, 'wayne_tpu_torch.')]
 for name in names:
     importlib.import_module(name)
+exports = json.loads(sys.argv[1])
+from wayne_tpu_torch.ops import readout
 print(json.dumps({
     'modules': names,
     'jax': sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')),
     'wayne_tpu': sorted(m for m in sys.modules
                         if m == 'wayne_tpu' or m.startswith('wayne_tpu.')),
+    'triton': sorted(m for m in sys.modules if m.split('.')[0] == 'triton'),
+    'kernels_loaded': readout._lib is not None,
+    'missing': {sub: [n for n in want if not hasattr(importlib.import_module(
+        'wayne_tpu_torch.' + sub), n)] for sub, want in exports.items()},
 }))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", _PROBE,
+                          json.dumps(JAX_EXPORTS)], cwd=REPO, env=env,
                          capture_output=True, text=True, check=True)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for expected in ("wayne_tpu_torch.observation", "wayne_tpu_torch.run_visit",
@@ -42,6 +71,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.parallel.ensemble",
                      "wayne_tpu_torch.parallel.dataset",
                      "wayne_tpu_torch.parallel.torch_data",
+                     "wayne_tpu_torch.parallel.mesh",
                      "wayne_tpu_torch.ops.spots",
                      "wayne_tpu_torch.ops.persistence",
                      "wayne_tpu_torch.ops.recte",
@@ -59,6 +89,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
+    assert got["triton"] == [] and got["kernels_loaded"] is False
+    assert got["missing"] == {sub: [] for sub in JAX_EXPORTS}
 
 
 def test_tf32_is_off_after_import():
@@ -75,6 +107,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
     from wayne_tpu_torch.config import config_from_dict
     from wayne_tpu_torch.device import resolve_device
     from wayne_tpu_torch.observation import Observation
+    from wayne_tpu_torch.parallel import make_mesh
     from wayne_tpu_torch.parallel.dataset import generate_dataset
     from wayne_tpu_torch.program import Program
     from wayne_tpu_torch.run_dataset import main as run_dataset
@@ -91,6 +124,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                    "  n_lambda: 16\n")
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["-p", str(yml), "-o", str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["-p", str(yml), "-o", str(tmp_path / "out"), "--all-devices"])
     with pytest.raises(RuntimeError, match="CUDA"):
         run_dataset(["-p", str(yml), "-o", str(tmp_path / "ds"),
                      "--n-mc", "2", "--chunk-mc", "2"])

@@ -15,6 +15,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from wayne_tpu.ops.pallas_readout import fused_exposure_readout
+from wayne_tpu_torch.ops.random import fast_poisson
 from wayne_tpu_torch.ops.readout import exposure_readout, exposure_readout_plain
 
 torch.set_num_threads(1)
@@ -124,6 +125,44 @@ def test_plain_poisson_regimes_and_read_noise():
                         torch.tensor([20.0, 78000.0, 1.0, 0.0]))
     assert abs(float(reads.double().std()) - 20.0) < 0.5
     assert abs(float(reads.double().mean())) < 0.1
+
+
+# (lam, z) where lam + sqrt(lam) z + (z^2 - 1)/6 lands within an ulp of a
+# half-integer: a quotient by 6 taken as a multiply by float32(1/6), which
+# is what PyTorch's CUDA ``t / 6.0`` does, rounds these to the other integer.
+HALF_INTEGER_DRAWS = [
+    (41.329315185546875, -0.41872110962867737),
+    (12.244315147399902, 0.12001407146453857),
+    (12.309959411621094, 0.10118179023265839),
+    (6.654434680938721, 0.004740480333566666),
+    (8.736632347106934, -0.023702245205640793),
+    (28.831836700439453, -0.030789947137236595),
+    (19.979833602905273, 0.15278778970241547),
+    (37.24016571044922, -2.7600533962249756),
+]
+
+
+def _cornish_fisher(lam, z, by_reciprocal=False):
+    """The kernels' ``gaussian_sample`` (csrc/detector.cuh) in float32, one
+    rounding per operation; ``by_reciprocal`` takes the quotient by 6 as a
+    multiply by float32(1/6)."""
+    f = np.float32
+    lam, z = f(lam), f(z)
+    zz = f(z * z - f(1.0))
+    skew = f(zz * (f(1.0) / f(6.0))) if by_reciprocal else f(zz / f(6.0))
+    return max(float(np.rint(f(f(lam + f(np.sqrt(lam) * z)) + skew))), 0.0)
+
+
+@pytest.mark.parametrize("lam,z", HALF_INTEGER_DRAWS)
+def test_fast_poisson_rounds_as_the_kernel_at_half_integers(lam, z):
+    """The plain Cornish-Fisher draw equals the kernel's arithmetic where a
+    one-ulp change in the skew term moves round() (the card holds the same
+    on CUDA tensors: ``tests/test_torch_cuda.py``)."""
+    want = _cornish_fisher(lam, z)
+    assert want != _cornish_fisher(lam, z, by_reciprocal=True)
+    got = fast_poisson(torch.tensor([lam]), torch.tensor([0.5]),
+                       torch.tensor([z]))
+    assert float(got[0]) == want
 
 
 def test_plain_draws_are_reproducible_and_batch_independent():

@@ -284,7 +284,7 @@ def test_visit_fluence_stack(visit):
 def test_visit_persistence_and_trap_maps_on_one_stack(visit):
     """Both visit-level wrappers, fed the same numpy fluence stack (and a
     prepended stimulus, as the direct image is)."""
-    obs, scenes_t, tables_t, _ = visit
+    obs, scenes_t, tables_t, static_t = visit
     f, _ = _stack(n=5, s=64, seed=9)
     extra = np.random.RandomState(10).uniform(0, 1e5, (64, 64)
                                               ).astype(np.float32)
@@ -293,14 +293,16 @@ def test_visit_persistence_and_trap_maps_on_one_stack(visit):
         obs.scenes, obs.tables, obs.static, pj, extra_fluence=jnp.asarray(
             extra), extra_end_s=-60.0, fluence_stack=jnp.asarray(f))
     got = pers_t.visit_persistence_rates(
-        scenes_t, tables_t, PersistenceConfig(enabled=True), T(f),
-        extra_fluence=T(extra), extra_end_s=-60.0)
+        scenes_t, tables_t, static_t, PersistenceConfig(
+            enabled=True), extra_fluence=T(extra), extra_end_s=-60.0,
+        fluence_stack=T(f))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     rj = RecteConfig_j(enabled=True, f0_s=0.1)
     tm_j, rel_j = recte_j.visit_trap_maps(obs.scenes, obs.tables, obs.static,
                                           rj, fluence_stack=jnp.asarray(f))
     tm_t, rel_t = recte_t.visit_trap_maps(
-        scenes_t, tables_t, RecteConfig(enabled=True, f0_s=0.1), T(f))
+        scenes_t, tables_t, static_t,
+        RecteConfig(enabled=True, f0_s=0.1), fluence_stack=T(f))
     np.testing.assert_allclose(tm_t.numpy(), np.asarray(tm_j), **TOL)
     # the release is a difference of trap populations up to ~1.5e3 e-,
     # where float32 rounds at 1.2e-4 e-: 1e-3 e- over the 103 s exposure

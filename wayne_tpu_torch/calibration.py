@@ -335,10 +335,14 @@ def synthetic_tables(
     blob_atten: float = 0.12,
     rts_frac: float = 0.0,
     rts_amplitude: float = 0.08,
+    dtype=torch.float32,
     device: torch.device | str = "cpu",
 ) -> Tables:
     """A complete synthetic Tables, built by the JAX package's NumPy code
-    (same fixed seeds, same streams) and placed on ``device``."""
+    (same fixed seeds, same streams), of ``dtype`` (a torch or NumPy
+    dtype) on ``device``."""
+    if not isinstance(dtype, torch.dtype):
+        dtype = torch.from_numpy(np.empty(0, dtype)).dtype
     if grism not in _GRISM_DEFAULTS:
         raise ValueError(f"unknown grism {grism!r}; have {GRISM_NAMES}")
     g = _GRISM_DEFAULTS[grism]
@@ -450,8 +454,8 @@ def synthetic_tables(
 
     read_times = sample_sequence_times(samp_seq, nsamp, subarray)
 
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float64),
-                                  dtype=torch.float32, device=device)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                  device=device)
     return Tables(
         wl_edges=f(wl_edges), wl_centers=f(wl), sensitivity=f(sens),
         psf_sigma=f(psf_sigma),

@@ -114,6 +114,15 @@ def get_lib() -> ctypes.CDLL:
     return _lib
 
 
+def native_available() -> bool:
+    """Whether the native writer builds and loads here."""
+    try:
+        get_lib()
+    except NativeWriterError:
+        return False
+    return True
+
+
 def write_ima_native(path: str, reads_dn: np.ndarray, read_times: np.ndarray,
                      primary_bytes: bytes, ext_header_bytes: list[bytes],
                      gain: float, read_noise_e: float,

@@ -18,9 +18,9 @@ before the first chunk.
 
 ``generate(debug=True)`` also materialises ``ideal_e``, runs the NaN and
 range guards (:mod:`wayne_tpu_torch.utils.guards`) on each chunk's host
-copy and writes ``visit_summary.json``.
-
-Not ported yet (ROADMAP): ``mesh`` / multi-GPU sharding.
+copy and writes ``visit_summary.json``. ``generate(mesh=...)`` shards the
+exposures over every device of a mesh (:mod:`wayne_tpu_torch.parallel.mesh`)
+and writes the same files.
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ from wayne_tpu_torch.ops.random import seed_words
 from wayne_tpu_torch.ops.recte import visit_trap_maps
 from wayne_tpu_torch.ops.spots import SpotParams
 from wayne_tpu_torch.ops.visit import (
-    pad_scenes, simulate_visit, visit_fluence_stack,
+    pad_scenes, simulate_visit, visit_fluence_stack, visit_shards,
 )
+from wayne_tpu_torch.parallel.mesh import check_mesh, gather_to_host, wait
 from wayne_tpu_torch.pytree import tree_map
 from wayne_tpu_torch.scene import CompanionParams, Scene
 from wayne_tpu_torch.trends import TrendParams
@@ -428,9 +429,10 @@ class Observation:
                           + bg_di * di_exptime * tab_di.active_mask)
             ends.append(float(self.scenes.exp_start_s[0]) - pcfg.di_gap_s)
         rates = visit_persistence_rates(
-            self.scenes, self.tables, pcfg, self._visit_fluence(chunk),
+            self.scenes, self.tables, self.static, pcfg, chunk=chunk,
             extra_fluence=torch.stack(extras) if extras else None,
-            extra_end_s=ends or None)
+            extra_end_s=ends or None,
+            fluence_stack=self._visit_fluence(chunk))
         self.scenes = dataclasses.replace(self.scenes, persist_rate=rates)
 
     def _ensure_recte(self, chunk: int = 8) -> None:
@@ -441,7 +443,8 @@ class Observation:
         if not rcfg.enabled or self.scenes.trap_mult is not None:
             return
         trap_mult, release = visit_trap_maps(
-            self.scenes, self.tables, rcfg, self._visit_fluence(chunk))
+            self.scenes, self.tables, self.static, rcfg, chunk=chunk,
+            fluence_stack=self._visit_fluence(chunk))
         persist = self.scenes.persist_rate
         self.scenes = dataclasses.replace(
             self.scenes, trap_mult=trap_mult,
@@ -459,7 +462,8 @@ class Observation:
     # ------------------------------------------------------------------
     def generate(self, outdir: str | None = None, chunk: int = 8,
                  progress: Callable[[str], None] | None = None,
-                 resume: bool = True, debug: bool = False) -> list[str]:
+                 resume: bool = True, debug: bool = False,
+                 mesh=None) -> list[str]:
         """Simulate the visit and write it as ima-style FITS files (plus
         the visit-opening direct image); returns the exposure paths.
 
@@ -467,8 +471,17 @@ class Observation:
         the chunk's other outputs), runs the NaN and range guards on every
         chunk's host copy (``utils.guards.check_exposure_result``, raising
         ``SimulationError``) and writes ``visit_summary.json`` with the JAX
-        package's keys. The default moves no extra bytes."""
+        package's keys. The default moves no extra bytes.
+
+        ``mesh`` (:func:`parallel.mesh.make_mesh`): the exposures are
+        sharded over ALL its devices, ``chunk`` exposures per device per
+        step (:func:`ops.visit.simulate_visit_sharded`), and each device's
+        frames are copied straight to the host. The files are the
+        one-device run's: every exposure's program and seed words are
+        position-independent."""
         cfg = self.cfg
+        # with a mesh, one step computes chunk exposures on EACH device
+        step = chunk * (1 if mesh is None else check_mesh(mesh).devices.size)
         outdir = outdir or cfg.outdir
         os.makedirs(outdir, exist_ok=True)
         say = progress or (lambda s: log.info("%s", s))
@@ -481,33 +494,26 @@ class Observation:
         self._ensure_persistence(chunk)
         self._ensure_recte(chunk)
 
-        scenes, n = pad_scenes(self.scenes, chunk)
+        scenes, n = pad_scenes(self.scenes, step)
         read_times = self.tables.read_times.cpu().numpy().astype(np.float64)
         gain = float(self.tables.gain)
         rn = float(self.tables.read_noise_e)
         t_start = time.time()
 
-        def fetch(res: ExposureResult):
-            """Start the copy of the write-path outputs to the host."""
-            reads = quantize_adc(res.reads_dn) if cfg.quantize_adc \
-                else res.reads_dn
-            parts = (reads, res.cr_pos, res.cr_count, res.saturated_frac)
-            if debug:
-                parts += (res.ideal_e,)
-            if self.device.type != "cuda":
-                return parts, None
-            host = tuple(torch.empty(p.shape, dtype=p.dtype, pin_memory=True)
-                         for p in parts)
-            for h, p in zip(host, parts):
-                h.copy_(p, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            return host, done
+        def fetch(results: list[ExposureResult]):
+            """Start the copy of the write-path outputs to the host: one
+            event per device the shards are on."""
+            shards = []
+            for res in results:
+                reads = quantize_adc(res.reads_dn) if cfg.quantize_adc \
+                    else res.reads_dn
+                parts = (reads, res.cr_pos, res.cr_count, res.saturated_frac)
+                shards.append(parts + (res.ideal_e,) if debug else parts)
+            return gather_to_host(shards)
 
         def write(c0: int, fetched) -> None:
-            host, done = fetched
-            if done is not None:
-                done.synchronize()
+            host, events = fetched
+            wait(events)
             reads, cr_pos, cr_count, sat, *ideal = (t.numpy() for t in host)
             chunk_h = HostChunk(reads.astype(np.float32, copy=False),
                                 cr_pos, cr_count, sat,
@@ -519,14 +525,16 @@ class Observation:
         futures: list = []
         with ThreadPoolExecutor(max_workers=1) as writer:
             pending: list = []
-            for c0 in range(0, scenes.n, chunk):
+            for c0 in range(0, scenes.n, step):
                 if resume and c0 < n and all(
                         os.path.exists(self._exp_path(outdir, i))
-                        for i in range(c0, min(c0 + chunk, n))):
-                    continue   # whole chunk already on disk: skip compute
-                sl = tree_map(lambda x: x[c0: c0 + chunk], scenes)
-                pending.append((c0, fetch(simulate_visit(
-                    sl, self.tables, static, chunk))))
+                        for i in range(c0, min(c0 + step, n))):
+                    continue   # whole step already on disk: skip compute
+                sl = tree_map(lambda x: x[c0: c0 + step], scenes)
+                results = ([simulate_visit(sl, self.tables, static, chunk)]
+                           if mesh is None else
+                           visit_shards(sl, self.tables, static, mesh, chunk))
+                pending.append((c0, fetch(results)))
                 if len(pending) > 1:
                     write(*pending.pop(0))
             while pending:

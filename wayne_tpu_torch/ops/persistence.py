@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from wayne_tpu_torch.calibration import Tables
-from wayne_tpu_torch.config import PersistenceConfig
+from wayne_tpu_torch.config import ExposureStatic, PersistenceConfig
 from wayne_tpu_torch.scene import Scene
 
 
@@ -68,17 +68,25 @@ def persistence_rates(fluence_stack: torch.Tensor, exp_start_s: torch.Tensor,
 
 
 def visit_persistence_rates(scenes: Scene, tables: Tables,
-                            pcfg: PersistenceConfig,
-                            fluence_stack: torch.Tensor,
+                            cfg: ExposureStatic, pcfg: PersistenceConfig,
+                            chunk: int = 8,
                             extra_fluence: torch.Tensor | None = None,
-                            extra_end_s=None) -> torch.Tensor:
+                            extra_end_s=None,
+                            fluence_stack: torch.Tensor | None = None
+                            ) -> torch.Tensor:
     """The whole visit's persistence maps (N, S, S) from its noise-free
-    fluence stack (N, S, S) (:func:`ops.visit.visit_fluence_stack`).
-    ``extra_fluence`` with ``extra_end_s`` prepends stimuli that are not
-    the visit's exposures: one (S, S) map with a scalar end time, or an
-    (M, S, S) stack with (M,) end times (the direct image, the prior
+    fluence stack (N, S, S): ``fluence_stack`` when given (Observation
+    shares one with the RECTE model), else one noise-free pass of the
+    visit here (:func:`ops.visit.visit_fluence_stack`, ``chunk`` exposures
+    a launch). ``extra_fluence`` with ``extra_end_s`` prepends stimuli that
+    are not the visit's exposures: one (S, S) map with a scalar end time,
+    or an (M, S, S) stack with (M,) end times (the direct image, the prior
     observation's fluence).
     """
+    if fluence_stack is None:
+        from wayne_tpu_torch.ops.visit import visit_fluence_stack
+
+        fluence_stack = visit_fluence_stack(scenes, tables, cfg, chunk)
     dev = fluence_stack.device
     exptime = float(tables.read_times[-1])
     fluence = fluence_stack

@@ -126,6 +126,14 @@ def key_words(seed: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s[..., 0], s[..., 1]
 
 
+def _by(t: torch.Tensor, c: float) -> torch.Tensor:
+    """t / c as one rounded division, as the kernels divide. On CUDA,
+    PyTorch's ``t / c`` multiplies by c's float32 reciprocal instead, which
+    rounds a third of the quotients by 6 one ulp apart and so moves the
+    Cornish-Fisher round() about once in 3e8 draws."""
+    return t / torch.full_like(t, c)
+
+
 def fast_poisson(lam: torch.Tensor, u: torch.Tensor,
                  z: torch.Tensor) -> torch.Tensor:
     """Poisson(lam) as float32 from a uniform ``u`` and a normal ``z`` of
@@ -136,7 +144,7 @@ def fast_poisson(lam: torch.Tensor, u: torch.Tensor,
     Cornish-Fisher round(lam + sqrt(lam) z + (z^2 - 1)/6); plain Gaussian
     above."""
     zero = torch.zeros_like(lam)
-    skew = torch.where(lam < _T_GAUSS, (z * z - 1.0) / 6.0, zero)
+    skew = torch.where(lam < _T_GAUSS, _by(z * z - 1.0, 6.0), zero)
     gauss = torch.clamp_min(torch.round(lam + torch.sqrt(lam) * z + skew), 0.0)
     lam_c = torch.clamp_max(lam, T_EXACT)
     p = torch.exp(-lam_c)

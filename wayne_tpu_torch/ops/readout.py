@@ -352,6 +352,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-Xcompiler", "-fPIC"]
 _lib = None
 _lib_lock = threading.Lock()
+# the wrappers' launch counts are raised from a mesh's worker threads too
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -454,6 +456,13 @@ def _kernel_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
+def _count(wrapper) -> None:
+    """One more launch of ``wrapper``'s kernel (no update is lost between
+    threads)."""
+    with _count_lock:
+        wrapper.launches += 1
+
+
 def _launch(fn, dev: torch.device, *args) -> None:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -509,7 +518,7 @@ def _launch_exposure_readout(seed, y0s, dts, bands, bg_rate, bias_map,
             inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
             cr_q.data_ptr(), reads.data_ptr(), cum.data_ptr(),
             B, NR, W, S, n_cr, *_scalars(consts), _flag_bits(**flags))
-    exposure_readout.launches += 1
+    _count(exposure_readout)
     return reads, cum
 
 
@@ -781,7 +790,7 @@ def read_step_banded(
             inv_gain.data_ptr(), nl_coeffs.data_ptr(), cr_pos.data_ptr(),
             cr_q.data_ptr(), cum_out.data_ptr(), dn.data_ptr(),
             B, W, S, n_cr, int(read), *_scalars(consts), _flag_bits(**flags))
-    read_step_banded.launches += 1
+    _count(read_step_banded)
     return cum_out, dn
 
 
@@ -834,7 +843,7 @@ def read_step(
             bg_rate.data_ptr(), bias_map.data_ptr(), inv_gain.data_ptr(),
             nl_coeffs.data_ptr(), cum_out.data_ptr(), dn.data_ptr(),
             B, S, int(read), rn, fw, inv_fw, inv_gain_s, _flag_bits(**flags))
-    read_step.launches += 1
+    _count(read_step)
     return cum_out, dn
 
 

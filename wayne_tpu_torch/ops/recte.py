@@ -124,10 +124,17 @@ def white_ramp(rate_e_s, exp_start_s: torch.Tensor, exptime_s: float,
     return (1.0 - deficit / torch.clamp_min(f * exptime_s, 1e-20))[:, 0]
 
 
-def visit_trap_maps(scenes, tables, rcfg, fluence_stack: torch.Tensor):
+def visit_trap_maps(scenes, tables, cfg, rcfg, chunk: int = 8,
+                    fluence_stack: torch.Tensor | None = None):
     """The whole visit's ``(trap_mult, release_rate)`` Scene leaves from
-    its noise-free fluence stack (N, S, S)
-    (:func:`ops.visit.visit_fluence_stack`)."""
+    its noise-free fluence stack (N, S, S): ``fluence_stack`` when given
+    (shared with the persistence model), else one noise-free pass of the
+    visit here (:func:`ops.visit.visit_fluence_stack`, ``chunk``
+    exposures a launch)."""
+    if fluence_stack is None:
+        from wayne_tpu_torch.ops.visit import visit_fluence_stack
+
+        fluence_stack = visit_fluence_stack(scenes, tables, cfg, chunk)
     exptime = float(tables.read_times[-1])
     params = RecteParams(
         n_trap_s=rcfg.n_trap_s, eta_s=rcfg.eta_s, tau_s=rcfg.tau_s,

@@ -4,6 +4,8 @@ the JAX package's ``ops/visit``).
 The JAX package maps a vmapped exposure program over fixed-size chunks
 inside one jit; here each chunk is one batched :func:`simulate_exposure`
 call, so the readout kernel launches once per chunk.
+:func:`simulate_visit_sharded` runs a visit's exposures over every device
+of an (mc, exp) mesh (:mod:`wayne_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -47,6 +49,43 @@ def simulate_visit(scenes: Scene, tables: Tables, cfg: ExposureStatic,
         return outs[0]
     it = iter(zip(*(leaves(o) for o in outs)))
     return tree_map(lambda _: torch.cat(next(it)), outs[0])
+
+
+def visit_shards(scenes, tables: Tables, cfg: ExposureStatic, mesh,
+                 chunk: int = 8) -> list[ExposureResult]:
+    """:func:`simulate_visit` of each block of a visit's exposures split
+    over every device of ``mesh``, ``chunk`` exposures per launch; the
+    blocks' results on their devices, in mesh order (the global exposure
+    order). ``scenes``: a batched Scene or a ``ShardedScenes`` with one
+    batch axis cut for ``mesh``."""
+    from wayne_tpu_torch.parallel.mesh import on_mesh, run_on_mesh
+
+    sharded = on_mesh(scenes, mesh, n_batch_axes=1)
+    n, d = sharded.batch_shape[0], sharded.mesh.devices.size
+    if n % (d * chunk) != 0:
+        raise ValueError(f"n_exposures {n} not a multiple of devices*chunk "
+                         f"= {d}*{chunk}")
+    return run_on_mesh(
+        lambda block, tab, dev: simulate_visit(block, tab, cfg, chunk),
+        sharded, tables)
+
+
+def simulate_visit_sharded(scenes, tables: Tables, cfg: ExposureStatic,
+                           mesh, chunk: int = 8) -> ExposureResult:
+    """Run a visit's exposures sharded over EVERY device of ``mesh``.
+
+    Each device runs :func:`simulate_visit` on its contiguous block of
+    exposures (one readout launch per ``chunk``), exactly the program it
+    would run alone: every exposure's seed words travel with it, so the
+    frames do not depend on where they were computed. The exposure count
+    must be a multiple of D * chunk (:func:`pad_scenes`). Returns the
+    ExposureResult gathered on the mesh's first device, exposures in
+    global order."""
+    outs = visit_shards(scenes, tables, cfg, mesh, chunk)
+    home = mesh.devices.flat[0]
+    it = iter(zip(*(leaves(o) for o in outs)))
+    return tree_map(lambda _: torch.cat([x.to(home) for x in next(it)]),
+                    outs[0])
 
 
 def visit_fluence_stack(scenes: Scene, tables: Tables, cfg: ExposureStatic,

@@ -31,6 +31,9 @@ from wayne_tpu_torch.device import resolve_device
 from wayne_tpu_torch.parallel.ensemble import (
     mc_scenes, simulate_ensemble_spectra,
 )
+from wayne_tpu_torch.parallel.mesh import (
+    check_mesh, gather_to_host, indexed_device, wait,
+)
 from wayne_tpu_torch.pytree import tree_map
 from wayne_tpu_torch.reduction import constrained_mask, spectra_to_depths
 from wayne_tpu_torch.scene import Scene
@@ -139,7 +142,7 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
                      seed: int = 0,
                      overrides: Mapping[str, Any] | None = None,
                      labels: Mapping[str, np.ndarray] | None = None,
-                     progress=None, dq_aware: bool = True,
+                     mesh=None, progress=None, dq_aware: bool = True,
                      recover: Mapping[str, Any] | None = None,
                      device: torch.device | str | None = None,
                      chunk: int = 8) -> dict[str, Any]:
@@ -156,6 +159,15 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
     one; ``"cpu"`` runs the plain PyTorch path. The scenes and tables are
     moved there. ``chunk``: exposures per readout launch.
 
+    ``mesh`` (:func:`parallel.mesh.make_mesh`) shards each chunk's
+    realisations over its 'mc' axis and the exposures over its 'exp' axis
+    (:func:`parallel.ensemble.simulate_ensemble_spectra`); the spectra are
+    gathered, and ``recover`` runs, on the mesh's first device, which
+    ``device`` must then be (or None). chunk_mc must be a multiple of the
+    'mc' size and the visit's exposures of the 'exp' size. The manifest
+    records the mesh's shape; a resume under another mesh is allowed,
+    since realisations are keyed by their global index.
+
     ``recover`` attaches RECOVERED depth labels: each chunk's spectra are
     also reduced on the device (reduction.spectra_to_depths, every
     realisation of the chunk in one call) and stored as ``recovered_rp``
@@ -169,11 +181,28 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
     (True: the ensemble's spectra are full-frame column sums, so the sky
     must go before the fit), ``scan_dir`` (n_exp,) reverse-scan mask.
     """
-    dev = resolve_device(device)
+    if mesh is None:
+        dev = resolve_device(device)
+        mesh_shape = [1, 1]
+    else:
+        home = check_mesh(mesh).devices.flat[0]
+        if device is not None and indexed_device(device) != home:
+            raise ValueError(f"device={device!r} but the mesh's first "
+                             f"device is {home}: pass device=None")
+        dev = home
+        mesh_shape = list(mesh.devices.shape)
     os.makedirs(outdir, exist_ok=True)
     say = progress or (lambda s: None)
     if n_mc % chunk_mc != 0:
         raise ValueError("n_mc must be a multiple of chunk_mc")
+    d_mc, d_exp = mesh_shape
+    if chunk_mc % d_mc != 0:
+        raise ValueError(f"chunk_mc must be a multiple of mesh mc={d_mc}")
+    if visit_scenes.n % d_exp != 0:
+        raise ValueError(
+            f"visit has {visit_scenes.n} exposures, not shardable over the "
+            f"mesh exp={d_exp} axis — pad the visit or choose a mesh "
+            f"whose exp axis divides it")
     if recover is not None and int(recover.get("n_chan", 8)) < 1:
         raise ValueError("recover n_chan must be >= 1")
     if labels:
@@ -271,23 +300,11 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
             sigma_components=True)
 
     # Two stages: while the device computes chunk i+1, the host writes
-    # chunk i, whose arrays were copied to pinned memory without blocking.
-    def fetch(arrays: list[torch.Tensor]):
-        if arrays[0].device.type != "cuda":
-            return arrays, None
-        hosts = []
-        for a in arrays:
-            host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
-            host.copy_(a, non_blocking=True)
-            hosts.append(host)
-        done = torch.cuda.Event()
-        done.record()
-        return hosts, done
-
+    # chunk i, whose arrays were copied to pinned memory without blocking
+    # (gather_to_host: an event on the arrays' own device's stream).
     def flush(pending) -> None:
-        path, (hosts, done), c0 = pending
-        if done is not None:
-            done.synchronize()
+        path, (hosts, events), c0 = pending
+        wait(events)
         spectra = hosts[0].numpy()
         payload = {"spectra_e": spectra}
         if recover is not None:
@@ -336,14 +353,14 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
         # noise however the run is chunked
         ens = sweep_scenes(visit_scenes, chunk_mc, seed=seed, overrides=over,
                            mc_offset=c0)
-        spectra = simulate_ensemble_spectra(ens, tables, cfg,
+        spectra = simulate_ensemble_spectra(ens, tables, cfg, mesh,
                                             dq_aware=dq_aware, chunk=chunk)
         arrays = [spectra]
         if recover is not None:
             arrays += list(spectra_to_depths(spectra, *rec_args,
                                              float(recover["rp0"]),
                                              **rec_kw))
-        fetched = fetch(arrays)
+        fetched = gather_to_host([tuple(arrays)])
         if pending is not None:
             flush(pending)
         pending = (path, fetched, c0)
@@ -360,6 +377,7 @@ def generate_dataset(visit_scenes: Scene, tables: Tables, cfg: ExposureStatic,
         "recover": recover_desc,
         "nlincorr": bool(cfg.noise.non_linearity),
         "keys": KEYS,
+        "mesh": mesh_shape,
         "chunks": written,
     }
     with open(manifest_path, "w") as fh:

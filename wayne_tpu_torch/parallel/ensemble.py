@@ -1,5 +1,5 @@
-"""Monte-Carlo visit ensembles on one device (port of the JAX package's
-``parallel/ensemble``).
+"""Monte-Carlo visit ensembles, on one device or sharded over an (mc, exp)
+mesh (port of the JAX package's ``parallel/ensemble``).
 
 Realisations of a visit differ in their seed words (and optionally in
 scene parameters); frames are reduced to extracted column spectra on the
@@ -12,10 +12,12 @@ realisations (the JAX package maps realisations one after another and
 vmaps a realisation's exposures), so what realisation m computes does not
 depend on how many realisations are asked for at once.
 
-Multi-GPU sharding (the JAX package's ``mesh``) is ROADMAP Queue A6's
-remainder: ``mesh`` other than None raises. The charge-memory leaves
-(``MC_INVARIANT_FIELDS``: persistence, RECTE) stay one (n_exp, S, S) buffer
-that every realisation views.
+With a mesh (:func:`parallel.mesh.make_mesh`) every position runs that
+loop on its own (mc/d_mc, exp/d_exp) block, on its own device, with no
+communication; the blocks are assembled on the mesh's first device. The
+charge-memory leaves (``MC_INVARIANT_FIELDS``: persistence, RECTE) stay one
+(n_exp, S, S) buffer that every realisation views, one copy per exposure
+block and device on a mesh.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from wayne_tpu_torch.config import ExposureStatic
 from wayne_tpu_torch.ops.exposure import ExposureResult, simulate_exposure
 from wayne_tpu_torch.ops.random import mc_seed_words
 from wayne_tpu_torch.ops.visit import pad_scenes
+from wayne_tpu_torch.parallel.mesh import on_mesh, run_on_mesh
 from wayne_tpu_torch.pytree import tree_map
 from wayne_tpu_torch.reduction import (
     extract_spectra_cr, linearize_reads, ramp_slope_frame, repair_read_stack,
@@ -97,16 +100,40 @@ def _reduce(res: ExposureResult, tables: Tables, cfg: ExposureStatic,
     return extract_spectra(reads, read_times)
 
 
-def simulate_ensemble_spectra(scenes: Scene, tables: Tables,
+def _ensemble_block(scenes: Scene, tables: Tables, cfg: ExposureStatic,
+                    read_times, dq_aware: bool, nlincorr: bool,
+                    chunk: int) -> torch.Tensor:
+    """(mc, exp, S) spectra of one device's (mc, exp) block: each
+    realisation's exposures in batches of ``chunk``."""
+    n_mc, n_exp = scenes.x_ref.shape[:2]
+    spectra = []
+    for m in range(n_mc):
+        for c0 in range(0, n_exp, chunk):
+            # views of the realisation's exposures; only a short last
+            # batch is padded (a copy of that batch alone)
+            batch, _ = pad_scenes(
+                tree_map(lambda x: x[m, c0:c0 + chunk], scenes), chunk)
+            res = simulate_exposure(batch, tables, cfg)
+            spectra.append(_reduce(res, tables, cfg, read_times, dq_aware,
+                                   nlincorr))
+    return torch.cat(spectra).view(n_mc, -1, cfg.subarray)[:, :n_exp]
+
+
+def simulate_ensemble_spectra(scenes, tables: Tables,
                               cfg: ExposureStatic, mesh=None, *,
                               ramp: bool = False, dq_aware: bool = True,
                               nlincorr: bool = True,
                               chunk: int = 8) -> torch.Tensor:
     """Extracted spectra of an (mc, exp)-batched Scene -> (mc, exp, S).
 
-    ``mesh`` stands where the JAX package's does, so a call written for
-    it cannot land its mesh in another argument; any mesh but None raises
-    (multi-GPU ensembles are ROADMAP Queue A6's remainder).
+    ``mesh`` (:func:`parallel.mesh.make_mesh`) stands where the JAX
+    package's does. With one, each mesh position computes its (mc/d_mc,
+    exp/d_exp) block on its device (``scenes`` a batched Scene, or a
+    ``ShardedScenes`` cut for this mesh) and the result is assembled on
+    the mesh's first device; n_mc and n_exp must be multiples of the
+    mesh's 'mc' and 'exp' sizes. A mesh that is not the port's (a JAX
+    mesh) raises TypeError. The result equals the one-device run bit for
+    bit when both cut the same batches (``chunk`` = n_exp / d_exp).
 
     ``ramp=True`` extracts with the up-the-ramp slope instead of CDS.
     ``dq_aware`` (default) repairs the simulated cosmic-ray hits at
@@ -121,11 +148,6 @@ def simulate_ensemble_spectra(scenes: Scene, tables: Tables,
     state changes per exposure), and these column sums carry them
     unrepaired: a warning says so when ``tables.rts_amp`` is active.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "simulate_ensemble_spectra(mesh=...): multi-GPU ensembles are "
-            "not ported to wayne_tpu_torch yet (ROADMAP Queue A6's "
-            "remainder); pass mesh=None")
     if tables.rts_amp is not None and bool((tables.rts_amp > 0).any()):
         warnings.warn(
             "simulate_ensemble_spectra: Tables.rts_amp is active — RTS "
@@ -135,15 +157,16 @@ def simulate_ensemble_spectra(scenes: Scene, tables: Tables,
             "depths)", stacklevel=2)
     nlincorr = nlincorr and cfg.noise.non_linearity
     read_times = tables.read_times if ramp else None
-    n_mc, n_exp = scenes.x_ref.shape[:2]
-    spectra = []
-    for m in range(n_mc):
-        for c0 in range(0, n_exp, chunk):
-            # views of the realisation's exposures; only a short last
-            # batch is padded (a copy of that batch alone)
-            batch, _ = pad_scenes(
-                tree_map(lambda x: x[m, c0:c0 + chunk], scenes), chunk)
-            res = simulate_exposure(batch, tables, cfg)
-            spectra.append(_reduce(res, tables, cfg, read_times, dq_aware,
-                                   nlincorr))
-    return torch.cat(spectra).view(n_mc, -1, cfg.subarray)[:, :n_exp]
+    if mesh is None:
+        return _ensemble_block(scenes, tables, cfg, read_times, dq_aware,
+                               nlincorr, chunk)
+    sharded = on_mesh(scenes, mesh, n_batch_axes=2)
+    blocks = run_on_mesh(
+        lambda block, tab, dev: _ensemble_block(
+            block, tab, cfg, None if read_times is None else tab.read_times,
+            dq_aware, nlincorr, chunk), sharded, tables)
+    home = sharded.mesh.devices.flat[0]
+    d_exp = sharded.mesh.devices.shape[1]
+    rows = [torch.cat([b.to(home) for b in blocks[i:i + d_exp]], dim=1)
+            for i in range(0, len(blocks), d_exp)]
+    return torch.cat(rows, dim=0)

@@ -7,6 +7,8 @@ Usage:
     python -m wayne_tpu_torch.run_visit -p pars.yml --debug # + guards and
                                                   # visit_summary.json
     python -m wayne_tpu_torch.run_visit -p pars.yml --quicklook  # + PNGs
+    python -m wayne_tpu_torch.run_visit -p pars.yml --all-devices  # shard
+                                                  # over every card
     python -m wayne_tpu_torch.run_visit --example > example_pars.yml
 
 Runs on the CUDA card; without one it fails unless ``--cpu`` is given.
@@ -85,6 +87,10 @@ def main(argv: list[str] | None = None) -> int:
                         help="also write diagnostic PNGs (needs matplotlib)")
     parser.add_argument("--debug", action="store_true",
                         help="run NaN/saturation guards + visit_summary.json")
+    parser.add_argument("--all-devices", action="store_true",
+                        help="shard the visit's exposures over every "
+                             "visible device (chunk exposures per device "
+                             "per step; files identical to single-device)")
     parser.add_argument("--example", action="store_true",
                         help="print an example parameter file and exit")
     args = parser.parse_args(argv)
@@ -108,8 +114,16 @@ def main(argv: list[str] | None = None) -> int:
           f"{obs.device}: {obs.plan.n_exposures} exposures x "
           f"NSAMP={cfg.nsamp} ({obs.detector_exptime:.1f}s each) over "
           f"{cfg.n_orbits} orbits")
+    mesh = None
+    if args.all_devices:
+        from wayne_tpu_torch.parallel.mesh import make_mesh
+
+        # --cpu: the one CPU device; else every CUDA card
+        mesh = make_mesh([obs.device] if args.cpu else None)
+        print(f"sharding exposures over {mesh.devices.size} devices")
     paths = obs.generate(cfg.outdir, chunk=args.chunk, progress=print,
-                         resume=not args.no_resume, debug=args.debug)
+                         resume=not args.no_resume, debug=args.debug,
+                         mesh=mesh)
     print(f"wrote {len(paths)} exposures to {cfg.outdir}")
     if args.quicklook:
         # from the files just written: simulating the visit again would

@@ -45,6 +45,14 @@ def _b(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (t.dim() - x.dim()))
 
 
+def ssv_factor(t_in_exposure: torch.Tensor, p: TrendParams) -> torch.Tensor:
+    """Scan-speed-variation flux multiplier at time t within the exposure:
+    1 + amp sin(2 pi t / period + phi)."""
+    phase = (2.0 * math.pi * t_in_exposure / _b(p.ssv_period_s, t_in_exposure)
+             + _b(p.ssv_phase, t_in_exposure))
+    return 1.0 + _b(p.ssv_amp, t_in_exposure) * torch.sin(phase)
+
+
 def ssv_mean_factor(t_a: torch.Tensor, t_b: torch.Tensor,
                     p: TrendParams) -> torch.Tensor:
     """Exact time-average of the SSV sinusoid over [t_a, t_b]:
