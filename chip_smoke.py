@@ -119,7 +119,17 @@ process per source, in parallel, linked into one library) and then:
    for bit, B1 held on the first sharded batch, both rates in turns; with
    more than one card, the same over ``make_mesh()``; ``run_visit
    --all-devices`` on a 128^2 copy of the headline YAML.
-   ``python3 chip_smoke.py --phases 9,10,11,12`` runs those phases alone
+13. the science tools (see ``phase_validation``): (a)
+   ``validate_recovery``'s main section at its full size (256^2, 48
+   exposures, 8 channels) and 32 realisations on the card: every gate (a
+   gate logged in ROADMAP Queue C must reproduce the committed
+   ``VALIDATION_TORCH.json``), B1 once per realisation, B1 = plain on the
+   first realisation's batch, the noise-free recovery card against CPU at
+   atol 1e-5; (b) ``program_ephemeris`` on the JAX package's drift program
+   (``tests/test_program.py``), written by the port's ``Program``: the
+   drift criteria of that test, and the card's result against ``--cpu``
+   on the same files.
+   ``python3 chip_smoke.py --phases 9,10,11,12,13`` runs those phases alone
    (phase 11 without 10 writes its visit and program itself) and prints no
    result lines.
 
@@ -518,15 +528,15 @@ def first_call(module, name: str, run, index: int = 0) -> tuple:
     return result, call
 
 
-def recorded_readout(run) -> tuple:
+def recorded_readout(run, index: int = 0) -> tuple:
     """``run()``'s result and the readout's arguments and flags exactly as
-    the main path gives them, recorded from the first ``exposure_readout``
-    call of ``run()``: (result, (the eleven array and scalar arguments in
-    order, the keyword flags))."""
+    the main path gives them, recorded from the ``exposure_readout`` call
+    number ``index`` (the first by default) of ``run()``: (result, (the
+    eleven array and scalar arguments in order, the keyword flags))."""
     import inspect
 
     import wayne_tpu_torch.ops.exposure as ex
-    result, call = first_call(ex, "exposure_readout", run)
+    result, call = first_call(ex, "exposure_readout", run, index)
     names = [p.name for p in inspect.signature(
         ex.exposure_readout).parameters.values()
         if p.kind is inspect.Parameter.POSITIONAL_OR_KEYWORD]
@@ -3147,8 +3157,187 @@ def phase_mesh(card: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the science-validation tools
+# ---------------------------------------------------------------------------
+
+VALIDATION_N_MC = 32        # 13a: the main section's realisations (the
+#                             tool's default)
+REFERENCE_ATOL = 1e-5       # 13a: noise-free Rp/Rs, card against CPU
+# 13a: the main section's gates that fall at the JAX tool's seed with the
+# port's bits, each logged with its three-seed diagnosis in ROADMAP Queue C
+# (entry, the record's numbers behind it): the run must reproduce the
+# committed record's numbers for them
+LOGGED_GATES = {"main_sigma": ("C15", "sigma_calibration_ratio")}
+# 13b: tests/test_program.py's drift program (128^2, 3 visits x 5 orbits x
+# 30 exposures, the true ephemeris walked 120 s a visit)
+EPHEMERIS_T0 = 56000.0
+EPHEMERIS_PROGRAM = {
+    "grism": "G141", "subarray": 128, "NSAMP": 4, "SAMPSEQ": "SPARS10",
+    "scan": True, "scan_speed": 2.0, "x_ref": 30.0, "y_ref": 40.0,
+    "num_orbits": 5, "exposures_per_orbit": 30, "exposure_overhead_s": 60.0,
+    "mag_J": 9.5, "n_lambda": 48, "n_sub": 2,
+    "start_mjd": EPHEMERIS_T0 - 9700.0 / 86400.0, "t0": EPHEMERIS_T0,
+    "period": 0.813475, "sma_over_rs": 4.855, "inclination": 82.1,
+    "rp_over_rs": 0.1595, "seed": 11,
+    "noise": {"read_noise": True, "sky": True, "dark": True},
+    "program": {"num_visits": 3, "visit_spacing_days": 0.0,
+                "carry_persistence": False, "t0_drift_s_per_visit": 120.0}}
+
+
+def phase_validation(card: str) -> int:
+    """The science tools on the card: (a) ``validate_recovery``'s main
+    section at its full size (256^2, 48 exposures, 8 channels) and
+    VALIDATION_N_MC realisations: every gate, B1 once per realisation
+    (plus the noise-free reference's), B1 = plain on the first
+    realisation's batch, and the noise-free recovery card against the same
+    function on the CPU; (b) ``program_ephemeris`` on the JAX package's
+    drift program (``tests/test_program.py``), written here by the port's
+    ``Program``, held to that test's criteria. Returns B1's launches."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from wayne_tpu_torch.config import load_yaml
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.program import Program
+    from wayne_tpu_torch.tools import validate_recovery as vr
+    from wayne_tpu_torch.tools.program_ephemeris import (
+        measure_program_ephemeris)
+
+    t_phase = time.time()
+    print(f"phase 13a: validate_recovery's main section on the card, "
+          f"{VALIDATION_N_MC} realisations")
+    t0 = time.time()
+    ref_card = vr.main_reference(vr.build_core("cuda"))
+    t_ref_card = time.time() - t0
+    t0 = time.time()
+    ref_cpu = vr.main_reference(vr.build_core("cpu"))
+    t_ref_cpu = time.time() - t0
+    err = float(np.abs(ref_card - ref_cpu).max())
+    check(err <= REFERENCE_ATOL,
+          f"noise-free recovery (8 channels), card against CPU: max abs "
+          f"diff {err:.3g} in Rp/Rs (atol {REFERENCE_ATOL:g}; card "
+          f"{t_ref_card:.2f} s, CPU {t_ref_cpu:.2f} s)")
+    ro.exposure_readout.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "VALIDATION_TORCH.json")
+        t0 = time.time()
+        # call 0 is the section's noise-free reference, call 1 the first
+        # realisation's batch
+        (record, gates), recorded = recorded_readout(
+            lambda: vr.run_sections(["main"], n_mc=VALIDATION_N_MC,
+                                    device="cuda", out=out), index=1)
+        wall = time.time() - t0
+        with open(out) as fh:
+            written = json.load(fh)
+    launches_a = ro.exposure_readout.launches
+    check(launches_a == VALIDATION_N_MC + 1,
+          f"main section: {launches_a} whole-exposure launches == "
+          f"{VALIDATION_N_MC} realisations + the noise-free reference (48 "
+          "exposures a launch)")
+    check(written == record and record["backend"] == "cuda"
+          and record["card"] == card and record["n_mc"] == VALIDATION_N_MC,
+          f"the record written: backend {record['backend']}, card "
+          f"{record['card']!r}, n_mc {record['n_mc']}")
+    ratio = record["sigma_calibration_ratio"]
+    with open(os.path.join(HERE, "VALIDATION_TORCH.json")) as fh:
+        committed = json.load(fh)
+    for name, ok in gates.items():
+        if name in LOGGED_GATES:
+            entry, key = LOGGED_GATES[name]
+            check(not ok and np.allclose(record[key], committed[key],
+                                         atol=2e-3),
+                  f"main section gate {name} falls as logged (ROADMAP "
+                  f"{entry}): {key} {record[key]}, the committed record's "
+                  f"{committed[key]}")
+            continue
+        check(ok, f"main section gate {name} (noise bias "
+                  f"{record['noise_induced_bias']}, reduction systematic "
+                  f"{record['reduction_systematic']}, sigma ratios {ratio}, "
+                  f"coverage {record['sigma_coverage_1sigma']})")
+    check(np.allclose(record["rp_noise_free_recovery"], ref_card,
+                      atol=1e-6),
+          "the section's noise-free recovery is the reference held above")
+    hold_recorded(ro, recorded, "phase 13a", "the first realisation")
+    print(f"timing [{card}]: main section, {VALIDATION_N_MC} realisations "
+          f"x 48 exposures, {record['wallclock_s']:.3f} s of ensemble "
+          f"(run_sections {wall:.3f} s with set-up and reference), "
+          f"{launches_a} B1 launches; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+
+    print("phase 13b: program_ephemeris on the drift program "
+          "(tests/test_program.py), 3 visits x 150 exposures at 128^2")
+    ro.exposure_readout.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        yml = os.path.join(d, "prog.yml")
+        with open(yml, "w") as fh:
+            yaml.safe_dump(EPHEMERIS_PROGRAM, fh)
+        t0 = time.time()
+        Program(load_yaml(yml)).generate(os.path.join(d, "prog"), chunk=CHUNK)
+        torch.cuda.synchronize()
+        t_gen = time.time() - t0
+        launches_b = ro.exposure_readout.launches
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            eph = measure_program_ephemeris(os.path.join(d, "prog"), yml,
+                                            n_chan=4)
+        t_eph = time.time() - t0
+        t0 = time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            eph_cpu = measure_program_ephemeris(os.path.join(d, "prog"), yml,
+                                                n_chan=4, cpu=True)
+        t_cpu = time.time() - t0
+    fitted = np.array(eph["per_visit_t0_offset_s"])
+    injected = np.array(eph["per_visit_injected_offset_s"])
+    comb = eph["combined_spectrum"]
+    rp_c = np.array([c["rp_over_rs"] for c in comb])
+    sig_c = np.array([c["rp_sigma"] for c in comb])
+    chi2 = np.array([c["repeatability_chi2_per_dof"] for c in comb])
+    check(np.allclose(injected, [0.0, 120.0, 240.0], atol=0.5)
+          and bool(np.all(np.abs(fitted - injected) < 60.0)),
+          f"per-visit t0 offsets {fitted.tolist()} s within 60 s of the "
+          f"injected {injected.tolist()}")
+    check(abs(eph["drift_s_per_visit_fitted"] - 120.0) < 45.0,
+          f"fitted drift {eph['drift_s_per_visit_fitted']} s/visit within "
+          "45 of 120")
+    check(bool(np.all(np.abs(rp_c - 0.1595)
+                      < np.maximum(5 * sig_c, 0.005))),
+          f"combined spectrum {rp_c.tolist()} within max(5 sigma, 0.005) "
+          f"of 0.1595 (sigma {sig_c.tolist()})")
+    # the JAX test's repeatability criterion (chi2/dof < 6) falls on this
+    # program with the port's bits, and the JAX tool gives the same on the
+    # same files (ROADMAP C14): the card is held to the CPU here instead
+    cpu_t0 = np.array(eph_cpu["per_visit_t0_offset_s"])
+    comb_cpu = eph_cpu["combined_spectrum"]
+    check(bool(np.all(np.abs(fitted - cpu_t0) <= 0.5))
+          and abs(eph["drift_s_per_visit_fitted"]
+                  - eph_cpu["drift_s_per_visit_fitted"]) <= 0.5
+          and all(abs(c["rp_over_rs"] - k["rp_over_rs"])
+                  <= 0.05 * k["rp_sigma"]
+                  and abs(c["repeatability_chi2_per_dof"]
+                          - k["repeatability_chi2_per_dof"])
+                  <= 2e-2 * k["repeatability_chi2_per_dof"] + 2e-3
+                  and c["constrained"] == k["constrained"]
+                  for c, k in zip(comb, comb_cpu)),
+          f"card against --cpu on the same files: t0 offsets {fitted.tolist()}"
+          f" vs {cpu_t0.tolist()} s (atol 0.5), combined depths within 0.05 "
+          f"sigma, repeatability chi2/dof {chi2.tolist()} vs "
+          f"{[k['repeatability_chi2_per_dof'] for k in comb_cpu]} (rtol "
+          "2e-2)")
+    print(f"  the JAX test's repeatability criterion (chi2/dof < 6): "
+          f"{chi2.tolist()}, {'met' if np.all(chi2 < 6.0) else 'not met'} "
+          "(ROADMAP C14)")
+    print(f"timing [{card}]: the program's generate() {t_gen:.3f} s "
+          f"({launches_b} B1 launches), program_ephemeris (3 x run_reduce "
+          f"--detrend ramp --fit-geometry) {t_eph:.3f} s on the card, "
+          f"{t_cpu:.3f} s with --cpu; phase 13 took "
+          f"{time.time() - t_phase:.1f} s")
+    return launches_a + launches_b
+
+
 def partial_run(only: set, card: str) -> int:
-    """Phases 9, 10, 11 and 12 alone (``--phases``); phase 10 then simulates
+    """Phases 9, 10, 11, 12 and 13 alone (``--phases``); phase 10 then simulates
     the phase-curve visit itself, and phase 11 without phase 10 writes the
     uncut headline visit (``run_visit``) and the three-visit program
     (``run_program``) itself. Prints no result lines."""
@@ -3178,6 +3367,8 @@ def partial_run(only: set, card: str) -> int:
             phase_inference(card, root)
     if 12 in only:
         phase_mesh(card)
+    if 13 in only:
+        phase_validation(card)
     check("jax" not in sys.modules, "jax was not imported")
     print(f"partial run of phases {sorted(only)}: no result lines")
     return 0
@@ -3247,6 +3438,7 @@ def main(argv: list[str] | None = None) -> int:
     whole["max_abs_err"] = max(whole["max_abs_err"], twin["max_abs_err"])
     keep.cleanup()
     launches += phase_mesh(card)
+    launches += phase_validation(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

@@ -1156,3 +1156,20 @@ def test_kernel_matches_plain_bit_for_bit_over_two_billion_draws(card):
         diff = got != want
         assert not bool(diff.any()) and torch.equal(cum, cum_w), (
             launch, int(diff.sum()), float((got - want).abs().max()))
+
+
+@pytest.mark.cuda
+def test_validation_main_reference_on_the_card_matches_cpu(card):
+    """validate_recovery's main noise-free core (simulation, NLINCORR,
+    reduce_visit and fit_depths of the chromatic transit visit at 128^2,
+    16 exposures, 4 channels) on the card against the CPU: Rp/Rs atol
+    1e-5 (chip_smoke.py phase 13a's bar at the full size)."""
+    from wayne_tpu_torch.tools import validate_recovery as vr
+
+    small = dict(S=128, NL=64, NSAMP=3, N_EXP=16, N_CHAN=4,
+                 samp_seq="SPARS10", band_px=32, x_ref=-60.0, y_ref=30.0,
+                 x_window=(4, 124), y_window=(20, 50), bg_rows=(90, 125))
+    got = vr.main_reference(vr.build_core(card, **small))
+    want = vr.main_reference(vr.build_core("cpu", **small))
+    assert np.all(np.isfinite(got)) and got.shape == (4,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

@@ -85,7 +85,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                      "wayne_tpu_torch.utils.cli",
                      "wayne_tpu_torch.mcmc",
                      "wayne_tpu_torch.retrieval",
-                     "wayne_tpu_torch.run_retrieve"):
+                     "wayne_tpu_torch.run_retrieve",
+                     "wayne_tpu_torch.tools",
+                     "wayne_tpu_torch.tools.program_ephemeris",
+                     "wayne_tpu_torch.tools.validate_recovery",
+                     "wayne_tpu_torch.tools.uncertainty_triangle"):
         assert expected in got["modules"]
     assert got["jax"] == []
     assert got["wayne_tpu"] == []
@@ -164,6 +168,22 @@ def test_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
         ExposureGenerator(subarray=64, n_lambda=16, nsamp=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         run(str(yml), outdir=str(tmp_path / "compat"))
+    from wayne_tpu_torch.tools import program_ephemeris as pe
+    from wayne_tpu_torch.tools import uncertainty_triangle as ut
+    from wayne_tpu_torch.tools import validate_recovery as vr
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vr.main(["--sections", "main", "--n-mc", "2"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vr.run_sections(["retrieval_mode"], out=str(tmp_path / "v.json"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ut.main(["--n-mc", "2"])
+    prog = tmp_path / "prog"
+    (prog / "visit_00").mkdir(parents=True)
+    (prog / "program_summary.json").write_text(json.dumps(
+        {"visits": [{"dir": "visit_00"}]}))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pe.main(["-d", str(prog), "-p", str(yml)])
+    assert not (tmp_path / "v.json").exists()
     assert resolve_device("cpu") == torch.device("cpu")
 
 
