@@ -129,7 +129,17 @@ process per source, in parallel, linked into one library) and then:
    (``tests/test_program.py``), written by the port's ``Program``: the
    drift criteria of that test, and the card's result against ``--cpu``
    on the same files.
-   ``python3 chip_smoke.py --phases 9,10,11,12,13`` runs those phases alone
+14. the repository's last three tools (see ``phase_tools``): (a)
+   ``ramp_envelope``'s walk-off and hook points and the validation default
+   at 2 draws at the tool's size, card against CPU (their gaps to
+   ``RAMP_ENVELOPE.json`` printed), B1 = plain on one realisation's batch;
+   (b) ``probe_dw_sigma``'s "full" variant at 2 realisations: its clean run
+   card against CPU, the ratios finite, B1 = plain on the first noisy
+   batch; (c) ``dataset_scale`` at its full width (512^2, 76 exposures,
+   G141 and G102) at chunks of 4 and its 11-chunk minimum: the resume after
+   the kill skips exactly the 10 chunks written, and the resumed dataset
+   equals a fresh one-shot run bit for bit.
+   ``python3 chip_smoke.py --phases 9,10,11,12,13,14`` runs those phases alone
    (phase 11 without 10 writes its visit and program itself) and prints no
    result lines.
 
@@ -3336,8 +3346,174 @@ def phase_validation(card: str) -> int:
     return launches_a + launches_b
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the ramp envelope, the divide-white probe and the dataset at scale
+# ---------------------------------------------------------------------------
+
+RAMP_ATOL = 2e-5            # 14a: noise-free ramp-fit Rp/Rs, card against CPU
+PROBE_N_MC = 2              # 14b: realisations of the probe's "full" variant
+PROBE_ATOL = 1e-5           # 14b: its clean run's Rp/Rs, card against CPU
+SCALE_N, SCALE_CHUNK = 44, 4    # 14c: the 11-chunk minimum at chunks of 4
+
+
+def _ramp_gaps(rp_clean, points: list, got: list) -> list[str]:
+    """Each walk-off grid point's white bias and channel bias beside the
+    JAX record's (``RAMP_ENVELOPE.json``, values only)."""
+    import numpy as np
+
+    from wayne_tpu_torch.tools import ramp_envelope as re_
+
+    with open(os.path.join(HERE, "RAMP_ENVELOPE.json")) as fh:
+        jax_record = json.load(fh)
+    rows = {(g["ssv_sin_amp"], g["ssv_rw_amp"]): g for g in jax_record["grid"]}
+    lines = []
+    for p, (w, ch) in zip(points, got):
+        if p[1] == 0.0 and tuple(p[2:4]) == re_.HOOK:
+            g = rows[(p[0], 0.0)]
+            wb = w - float(rp_clean.mean())
+            cb = float(np.abs(ch - rp_clean).max())
+            lines.append(f"sin {p[0]}: white bias {wb:.6f} (JAX "
+                         f"{g['white_bias_mean']}, gap "
+                         f"{wb - g['white_bias_mean']:.2e}), channel bias max "
+                         f"{cb:.6f} (JAX {g['channel_bias_max']})")
+    return lines
+
+
+def phase_tools(card: str) -> int:
+    """The repository's last three tools on the card, at their own widths:
+    (a) ``ramp_envelope``'s four walk-off points and six hook points and
+    the validation default at 2 draws (one B1 launch a point), card
+    against CPU, B1 = plain on one realisation's batch; (b)
+    ``probe_dw_sigma``'s "full" variant at PROBE_N_MC realisations: the
+    clean run card against CPU, the ratios finite, B1 = plain on the first
+    noise-on batch; (c) ``dataset_scale`` at its full width (512^2, 76
+    exposures, both grisms) at chunks of SCALE_CHUNK and its 11-chunk
+    minimum: resume after the kill, and the resumed dataset bit for bit
+    against a fresh one-shot run. Returns B1's launches."""
+    import numpy as np
+    import torch
+
+    from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.parallel.dataset import generate_dataset
+    from wayne_tpu_torch.tools import dataset_scale as ds
+    from wayne_tpu_torch.tools import probe_dw_sigma as pr
+    from wayne_tpu_torch.tools import ramp_envelope as re_
+    from wayne_tpu_torch.tools import validate_recovery as vr
+
+    t_phase = time.time()
+    points = ([(sa, 0.0, *re_.HOOK, 0) for sa in re_.SIN_AMPS]
+              + [(re_.DEFAULT[0], 0.0, h, sc, 0) for h, sc in re_.HOOK_POINTS]
+              + [(*re_.DEFAULT, *re_.HOOK, d) for d in range(2)])
+    print(f"phase 14a: ramp_envelope at its full size (256^2, 48 exposures, "
+          f"8 channels), {len(points)} points: the four walk-off grid "
+          "points, the six hook points, the default point's 2 draws")
+    env, env_cpu = re_.build_envelope("cuda"), re_.build_envelope("cpu")
+    ro.exposure_readout.launches = 0
+    got, t_card = _synced(lambda: [re_.run_point(env, *p) for p in points])
+    launches_a = ro.exposure_readout.launches
+    check(launches_a == len(points),
+          f"ramp points: {launches_a} whole-exposure launches == "
+          f"{len(points)} points (48 exposures a launch)")
+    rp_clean = re_.run_clean(env)
+    t0 = time.time()
+    want = [re_.run_point(env_cpu, *p) for p in points]
+    t_cpu = time.time() - t0
+    errs = [max(abs(w - wc), float(np.abs(ch - chc).max()))
+            for (w, ch), (wc, chc) in zip(got, want)]
+    check(all(np.isfinite(w) and np.all(np.isfinite(ch)) for w, ch in got)
+          and max(errs) <= RAMP_ATOL,
+          f"ramp points card against CPU: white and channel Rp/Rs max abs "
+          f"diff {max(errs):.3g} (per point {[f'{e:.2g}' for e in errs]}; "
+          f"atol {RAMP_ATOL:g}, the ramp path's valley, ROADMAP C13)")
+    hook = [w for w, _ in got[len(re_.SIN_AMPS):][:len(re_.HOOK_POINTS)]]
+    for line in _ramp_gaps(rp_clean, points, got):
+        print(f"  {line}")
+    print(f"  hook absorption max delta {float(np.ptp(hook)):.2e} (JAX "
+          "record 6e-06); default point draws 0 and 1: white "
+          f"{got[-2][0]:.6f}, {got[-1][0]:.6f}")
+    _, recorded = recorded_readout(
+        lambda: re_.run_point(env, *re_.DEFAULT, *re_.HOOK, 0))
+    hold_recorded(ro, recorded, "phase 14a", "one realisation")
+    print(f"timing [{card}]: {len(points)} ramp points {t_card:.3f} s on the "
+          f"card ({t_card / len(points):.3f} s a point: one B1 launch, "
+          f"reduce_visit, fit_white_ramp, fit_depths), {t_cpu:.3f} s on the "
+          "CPU")
+
+    name, extra, rw = pr.VARIANTS[0]
+    print(f"phase 14b: probe_dw_sigma's {name!r} variant at its full size, "
+          f"{PROBE_N_MC} realisations, bg rows (180, 250)")
+    core, core_cpu = vr.build_core("cuda"), vr.build_core("cpu")
+    ro.exposure_readout.launches = 0
+    t0 = time.time()
+    # call 0 is the first noisy realisation's batch
+    res, recorded = recorded_readout(
+        lambda: pr.run_variant(core, extra, rw, PROBE_N_MC))
+    t_probe = time.time() - t0
+    launches_b = ro.exposure_readout.launches
+    check(launches_b == 2 * PROBE_N_MC,
+          f"probe variant: {launches_b} whole-exposure launches == "
+          f"{PROBE_N_MC} noisy + {PROBE_N_MC} clean realisations")
+    _, clean = pr.variant_cfgs(core_cpu, extra)
+    rp_cpu = vr.ensemble(core_cpu, pr.variant_run(core_cpu, rw), clean,
+                         "divide-white", PROBE_N_MC)["rp"]
+    err = float(np.abs(res["rp_clean"] - rp_cpu).max())
+    check(err <= PROBE_ATOL,
+          f"probe clean run (SSV + walk + visit trend, no noise) card "
+          f"against CPU: max abs diff {err:.3g} in Rp/Rs (atol "
+          f"{PROBE_ATOL:g})")
+    check(bool(np.all(np.isfinite(res["ratio"])) and np.all(res["ratio"] > 0)),
+          f"probe ratios finite: {np.round(res['ratio'], 2).tolist()}")
+    hold_recorded(ro, recorded, "phase 14b", "the first noisy realisation")
+    print(f"timing [{card}]: probe variant {t_probe:.3f} s "
+          f"({2 * PROBE_N_MC} realisations, divide-white fits)")
+
+    print(f"phase 14c: dataset_scale at its full width (512^2, 76 exposures, "
+          f"G141 and G102), n_per_grism {SCALE_N}, chunks of {SCALE_CHUNK}")
+    ro.exposure_readout.launches = 0
+    with tempfile.TemporaryDirectory() as d:
+        with contextlib.redirect_stderr(io.StringIO()):
+            rec, t_scale = _synced(lambda: ds.run_scale(
+                SCALE_N, "cuda", os.path.join(d, "scale.json"),
+                chunk_mc=SCALE_CHUNK, scratch=os.path.join(d, "data")))
+        launches_c = ro.exposure_readout.launches
+        batches = -(-rec["n_exp"] // CHUNK)
+        check(launches_c == 2 * SCALE_N * batches,
+              f"dataset: {launches_c} whole-exposure launches == 2 grisms x "
+              f"{SCALE_N} realisations x {batches} batches")
+        for grism, g in rec["grisms"].items():
+            check(g["resume_ok"] and g["resume_skipped_chunks"] == 10
+                  and g["chunks"] == SCALE_N // SCALE_CHUNK,
+                  f"[{grism}] resume: {g['resume_skipped_chunks']} chunks "
+                  f"skipped == 10, {g['chunks']} chunks, "
+                  f"{g['sustained_visits_per_s_per_chip']} visits/s")
+        cfg, scenes, grisms = ds.scale_inputs(
+            torch.device("cuda", torch.cuda.current_device()), SCALE_N,
+            **ds.SIZES)
+        tables, rp = grisms["G141"]
+        fresh = os.path.join(d, "fresh")
+        manifest = generate_dataset(
+            scenes, tables, cfg, fresh, n_mc=SCALE_N, chunk_mc=SCALE_CHUNK,
+            seed=3, overrides={"rp_over_rs": np.broadcast_to(
+                rp[:, None], (SCALE_N, ds.SIZES["NL"])).copy()},
+            labels={"rp": rp}, device="cuda")
+        same = []
+        for chunk in manifest["chunks"]:
+            with np.load(os.path.join(fresh, chunk)) as a, np.load(
+                    os.path.join(d, "data", "G141", chunk)) as b:
+                same.append(sorted(a.files) == sorted(b.files) and all(
+                    np.array_equal(a[k], b[k]) for k in a.files))
+        check(all(same), f"[G141] the resumed dataset's {len(same)} chunks "
+                         "equal a fresh one-shot run's bit for bit "
+                         f"({sum(same)} equal)")
+    print(f"timing [{card}]: dataset_scale {t_scale:.3f} s (phase 2 "
+          f"{rec['sustained_visits_per_s_per_chip']} visits/s, "
+          f"{[g['exposures_per_s'] for g in rec['grisms'].values()]} "
+          f"exposures/s); phase 14 took {time.time() - t_phase:.1f} s")
+    return launches_a + launches_b + launches_c
+
+
 def partial_run(only: set, card: str) -> int:
-    """Phases 9, 10, 11, 12 and 13 alone (``--phases``); phase 10 then simulates
+    """Phases 9 to 14 alone (``--phases``); phase 10 then simulates
     the phase-curve visit itself, and phase 11 without phase 10 writes the
     uncut headline visit (``run_visit``) and the three-visit program
     (``run_program``) itself. Prints no result lines."""
@@ -3369,6 +3545,8 @@ def partial_run(only: set, card: str) -> int:
         phase_mesh(card)
     if 13 in only:
         phase_validation(card)
+    if 14 in only:
+        phase_tools(card)
     check("jax" not in sys.modules, "jax was not imported")
     print(f"partial run of phases {sorted(only)}: no result lines")
     return 0
@@ -3439,6 +3617,7 @@ def main(argv: list[str] | None = None) -> int:
     keep.cleanup()
     launches += phase_mesh(card)
     launches += phase_validation(card)
+    launches += phase_tools(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")

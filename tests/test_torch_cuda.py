@@ -1173,3 +1173,44 @@ def test_validation_main_reference_on_the_card_matches_cpu(card):
     want = vr.main_reference(vr.build_core("cpu", **small))
     assert np.all(np.isfinite(got)) and got.shape == (4,)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+SMALL_CORE = dict(S=128, NL=64, NSAMP=3, N_EXP=16, N_CHAN=4,
+                  samp_seq="SPARS10", band_px=32, x_ref=-60.0, y_ref=30.0,
+                  x_window=(4, 124), y_window=(20, 50), bg_rows=(90, 125))
+
+
+@pytest.mark.cuda
+def test_ramp_envelope_point_on_the_card_matches_cpu(card):
+    """ramp_envelope's walk-off default point (SSV sinusoid, hook, visit
+    trend; the joint white ramp fit) at 128^2, 16 exposures, 4 channels on
+    the card against the CPU: white and channel Rp/Rs atol 2e-5
+    (chip_smoke.py phase 14a's bar at the full size)."""
+    from wayne_tpu_torch.tools import ramp_envelope as re_
+
+    point = (re_.DEFAULT[0], 0.0, *re_.HOOK, 0)
+    w, ch = re_.run_point(re_.build_envelope(card, **SMALL_CORE), *point)
+    w_c, ch_c = re_.run_point(re_.build_envelope("cpu", **SMALL_CORE), *point)
+    assert np.isfinite(w) and ch.shape == (4,) and np.all(np.isfinite(ch))
+    np.testing.assert_allclose(w, w_c, rtol=0, atol=2e-5)
+    np.testing.assert_allclose(ch, ch_c, rtol=0, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_probe_clean_run_on_the_card_matches_cpu(card):
+    """probe_dw_sigma's "full" variant's clean run (SSV with its walk and
+    the visit trend, no noise, no amplifier correction, divide-white) on
+    the card against the CPU at the small core: Rp/Rs atol 1e-5
+    (chip_smoke.py phase 14b's bar at the full size)."""
+    from wayne_tpu_torch.tools import probe_dw_sigma as pr
+    from wayne_tpu_torch.tools import validate_recovery as vr
+
+    _, extra, rw = pr.VARIANTS[0]
+    got = []
+    for dev in (card, "cpu"):
+        core = vr.build_core(dev, **SMALL_CORE)
+        _, clean = pr.variant_cfgs(core, extra)
+        got.append(vr.ensemble(core, pr.variant_run(core, rw), clean,
+                               "divide-white", 2)["rp"])
+    assert got[0].shape == (2, 4) and np.all(np.isfinite(got[0]))
+    np.testing.assert_allclose(got[0], got[1], rtol=0, atol=1e-5)

@@ -6,7 +6,13 @@
 - :mod:`.validate_recovery`: ensemble depth recovery and sigma
   calibration in twelve sections -> ``VALIDATION_TORCH.json``;
 - :mod:`.uncertainty_triangle`: LM sigma, MCMC width and Monte-Carlo
-  scatter side by side -> ``UNCERTAINTY_TORCH.json``.
+  scatter side by side -> ``UNCERTAINTY_TORCH.json``;
+- :mod:`.ramp_envelope`: the joint white ramp fit's model-mismatch
+  envelope over the systematics amplitudes -> ``RAMP_ENVELOPE_TORCH.json``;
+- :mod:`.probe_dw_sigma`: which systematic drives the divide-white
+  sigma_rel underreporting (printed);
+- :mod:`.dataset_scale`: a labelled Monte-Carlo dataset at scale with
+  resume after a kill -> ``DATASET_SCALE_TORCH.json``.
 
 Each runs on the CUDA card unless ``--cpu`` (``device="cpu"``) is given,
 and raises without a card. Importing this package builds no kernel.

@@ -163,6 +163,15 @@ def broadcast_visit(base, n_exp: int):
     return tree_map(lambda x: x[None].expand((n_exp,) + x.shape), base)
 
 
+def with_trends(visit, **values):
+    """``visit`` with the named TrendParams leaves set to one value for
+    every exposure (the JAX tools' ``broadcast_to(float32(v), shape)``)."""
+    trends = visit.trends
+    return dataclasses.replace(visit, trends=dataclasses.replace(trends, **{
+        name: torch.full_like(getattr(trends, name), float(v))
+        for name, v in values.items()}))
+
+
 def channel_truth(tables, x_ref, y_ref, rp_inj: np.ndarray,
                   x_window: tuple[int, int], n_chan: int) -> np.ndarray:
     """The injected spectrum per channel: the unweighted mean of the
