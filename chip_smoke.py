@@ -137,8 +137,9 @@ process per source, in parallel, linked into one library) and then:
    card against CPU, the ratios finite, B1 = plain on the first noisy
    batch; (c) ``dataset_scale`` at its full width (512^2, 76 exposures,
    G141 and G102) at chunks of 4 and its 11-chunk minimum: the resume after
-   the kill skips exactly the 10 chunks written, and the resumed dataset
-   equals a fresh one-shot run bit for bit.
+   the kill skips exactly the 10 chunks written, the resumed dataset
+   equals a fresh one-shot run bit for bit, B1 = plain on the first
+   sharded batch.
    ``python3 chip_smoke.py --phases 9,10,11,12,13,14`` runs those phases alone
    (phase 11 without 10 writes its visit and program itself) and prints no
    result lines.
@@ -3388,8 +3389,9 @@ def phase_tools(card: str) -> int:
     clean run card against CPU, the ratios finite, B1 = plain on the first
     noise-on batch; (c) ``dataset_scale`` at its full width (512^2, 76
     exposures, both grisms) at chunks of SCALE_CHUNK and its 11-chunk
-    minimum: resume after the kill, and the resumed dataset bit for bit
-    against a fresh one-shot run. Returns B1's launches."""
+    minimum: resume after the kill, the resumed dataset bit for bit
+    against a fresh one-shot run, B1 = plain on the first sharded batch.
+    Returns B1's launches."""
     import numpy as np
     import torch
 
@@ -3472,14 +3474,11 @@ def phase_tools(card: str) -> int:
     ro.exposure_readout.launches = 0
     with tempfile.TemporaryDirectory() as d:
         with contextlib.redirect_stderr(io.StringIO()):
-            rec, t_scale = _synced(lambda: ds.run_scale(
-                SCALE_N, "cuda", os.path.join(d, "scale.json"),
-                chunk_mc=SCALE_CHUNK, scratch=os.path.join(d, "data")))
-        launches_c = ro.exposure_readout.launches
-        batches = -(-rec["n_exp"] // CHUNK)
-        check(launches_c == 2 * SCALE_N * batches,
-              f"dataset: {launches_c} whole-exposure launches == 2 grisms x "
-              f"{SCALE_N} realisations x {batches} batches")
+            # call 0 is the first sharded batch of G141's first chunk
+            (rec, recorded), t_scale = _synced(lambda: recorded_readout(
+                lambda: ds.run_scale(
+                    SCALE_N, "cuda", os.path.join(d, "scale.json"),
+                    chunk_mc=SCALE_CHUNK, scratch=os.path.join(d, "data"))))
         for grism, g in rec["grisms"].items():
             check(g["resume_ok"] and g["resume_skipped_chunks"] == 10
                   and g["chunks"] == SCALE_N // SCALE_CHUNK,
@@ -3505,6 +3504,12 @@ def phase_tools(card: str) -> int:
         check(all(same), f"[G141] the resumed dataset's {len(same)} chunks "
                          "equal a fresh one-shot run's bit for bit "
                          f"({sum(same)} equal)")
+    launches_c = ro.exposure_readout.launches
+    batches = -(-rec["n_exp"] // CHUNK)
+    check(launches_c == 3 * SCALE_N * batches,
+          f"dataset: {launches_c} whole-exposure launches == (2 grisms + the "
+          f"fresh G141 run) x {SCALE_N} realisations x {batches} batches")
+    hold_recorded(ro, recorded, "phase 14c", "the first sharded batch")
     print(f"timing [{card}]: dataset_scale {t_scale:.3f} s (phase 2 "
           f"{rec['sustained_visits_per_s_per_chip']} visits/s, "
           f"{[g['exposures_per_s'] for g in rec['grisms'].values()]} "

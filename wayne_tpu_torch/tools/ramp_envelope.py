@@ -32,14 +32,12 @@ tool's: |mean white bias| < 2e-3 at the validation default (sin 0.015, rw
 sinusoid moving the white bias < 1e-4, the hook delta < 5e-4.
 
 Usage: python -m wayne_tpu_torch.tools.ramp_envelope [--cpu] [--n-draw 8]
-       [--out PATH] [--diagnose]
+       [--out PATH]
 
 Runs on the CUDA card unless ``--cpu`` is given (without a card it
 raises); exits 1 when a gate falls. The record has the JAX record's keys
 plus ``card`` (the name and power limit ``nvidia-smi`` reports), with
-``backend`` the torch device type. ``--diagnose`` writes no record: it
-prints the default point at seeds 124 and 125 (``--n-draw`` draws) and at
-seed 123 with 32 draws, the check behind a fallen default gate.
+``backend`` the torch device type.
 """
 
 from __future__ import annotations
@@ -76,13 +74,13 @@ class Envelope:
     run: vr.Run                 # no amplifier correction, root seed
 
 
-def build_envelope(device, seed: int = SEED, **core_kw) -> Envelope:
+def build_envelope(device, **core_kw) -> Envelope:
     """The JAX tool's visit on ``device`` (``tools/ramp_envelope.py:80-102``);
     ``core_kw`` resizes it (:func:`validate_recovery.build_core`)."""
     core = vr.build_core(device, **core_kw)
     return Envelope(core=core,
                     cfg=vr.noise_off(core.cfg, ssv=True, visit_trend=True),
-                    run=vr.scan_run(core, seed, quad=None))
+                    run=vr.scan_run(core, SEED, quad=None))
 
 
 def run_point(env: Envelope, sin_amp: float, rw_amp: float, hook_amp: float,
@@ -189,34 +187,13 @@ def sweep(n_draw: int = 8, device=None, out: str = RECORD,
                        if k != "default_point_white_bias")
 
 
-def diagnose(n_draw: int = 8, device=None,
-             core_kw: dict | None = None) -> dict:
-    """The default point at seeds 124 and 125 (``n_draw`` draws) and at
-    seed 123 with 32 draws: whether a fallen default gate is the draw's."""
-    from wayne_tpu_torch.device import resolve_device
-
-    dev = resolve_device(device)
-    out = {}
-    for seed, n in ((124, n_draw), (125, n_draw), (SEED, 32)):
-        env = build_envelope(dev, seed, **(core_kw or {}))
-        out[f"seed {seed}, n_draw {n}"] = point(env, *DEFAULT,
-                                                run_clean(env), n)
-    return {"card": card_name(dev), "default_point": out}
-
-
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(prog="wayne_tpu_torch.tools.ramp_envelope")
     parser.add_argument("--cpu", action="store_true")
     parser.add_argument("--n-draw", type=int, default=8)
     parser.add_argument("--out", default=RECORD)
-    parser.add_argument("--diagnose", action="store_true",
-                        help="print the default point at seeds 124, 125 "
-                             "and at 32 draws; write no record")
     args = parser.parse_args(argv)
     device = "cpu" if args.cpu else None
-    if args.diagnose:
-        print(json.dumps(diagnose(args.n_draw, device)))
-        return 0
     record, ok = sweep(args.n_draw, device, args.out)
     print(json.dumps(record))
     return 0 if ok else 1
