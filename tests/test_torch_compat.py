@@ -22,7 +22,9 @@ from wayne_tpu_torch.config import NoiseFlags
 from wayne_tpu_torch.io.ima import read_ima
 from wayne_tpu_torch.models.detector import WFC3IRDetector
 from wayne_tpu_torch.models.grism import make_grism
-from wayne_tpu_torch.utils.profiling import StageTimers, device_trace
+from wayne_tpu_torch.utils.profiling import (
+    StageTimers, device_trace, span, tracing,
+)
 
 torch.set_num_threads(1)
 
@@ -123,17 +125,23 @@ def test_detector_matches_jax():
 
 
 def test_stage_timers_and_device_trace(tmp_path):
-    t = StageTimers()
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("a") as h:
-        h.sync = torch.ones(3) * 2.0          # a CPU tensor: no wait
-        time.sleep(0.01)
+    with tracing() as handle:
+        with span("a"):
+            time.sleep(0.01)
+        with span("a"):
+            with span("b"):
+                time.sleep(0.01)
+    t = StageTimers(handle.spans)
     s = t.summary()
     assert s["a"]["count"] == 2 and s["a"]["total_s"] >= 0.02
+    assert s["b"]["count"] == 1 and s["b"]["self_s"] >= 0.01
+    assert s["a"]["self_s"] == pytest.approx(
+        s["a"]["total_s"] - s["b"]["total_s"], abs=1e-9)
     assert "a" in t.report()
-    with device_trace(str(tmp_path / "trace")):
-        torch.ones(64).cumsum(0)
+    with tracing(), device_trace(str(tmp_path / "trace")):
+        with span("c"):
+            torch.ones(64).cumsum(0)
     with open(tmp_path / "trace" / "trace.json") as fh:
         events = json.load(fh)["traceEvents"]
     assert any("cumsum" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "wt:c" for e in events)

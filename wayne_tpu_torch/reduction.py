@@ -54,6 +54,7 @@ from wayne_tpu_torch.ops.kepler import (
 )
 from wayne_tpu_torch.ops.recte import white_ramp
 from wayne_tpu_torch.ops.transit import eclipse_visibility, transit_depth_curve
+from wayne_tpu_torch.utils.profiling import span
 
 # DQ bits the repair consumes (io.ima conventions): cosmic ray (8192),
 # saturation (256), and the static classes (hot 16, dead 4, IR blob 512,
@@ -1041,52 +1042,53 @@ def fit_depths(channel_lc: torch.Tensor, exp_mid_s: torch.Tensor,
 
     Returns (rp_hat, rp_sigma), each (..., n_chan).
     """
-    lc = channel_lc.to(torch.float32)
-    dev = lc.device
-    n_exp, n_chan = lc.shape[-2:]
-    z, in_front = projected_separation(exp_mid_s, orbit)
-    zc, fc = z[:, None], in_front[:, None]
-    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
-    ld_chan = (ld if ld.dim() == 2 else ld[None, :]).expand(n_chan, 4)
-    w = (torch.ones(n_exp, dtype=torch.float32, device=dev)
-         if weights is None
-         else torch.as_tensor(weights, dtype=torch.float32, device=dev))
-    wc = w[:, None]
-    oot_f = out_of_transit_mask(exp_mid_s, orbit).to(torch.float32)
+    with span("fit.depths"):
+        lc = channel_lc.to(torch.float32)
+        dev = lc.device
+        n_exp, n_chan = lc.shape[-2:]
+        z, in_front = projected_separation(exp_mid_s, orbit)
+        zc, fc = z[:, None], in_front[:, None]
+        ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+        ld_chan = (ld if ld.dim() == 2 else ld[None, :]).expand(n_chan, 4)
+        w = (torch.ones(n_exp, dtype=torch.float32, device=dev)
+             if weights is None
+             else torch.as_tensor(weights, dtype=torch.float32, device=dev))
+        wc = w[:, None]
+        oot_f = out_of_transit_mask(exp_mid_s, orbit).to(torch.float32)
 
-    def model(rp):          # (..., n_chan) -> (..., n_exp, n_chan)
-        f = transit_depth_curve(zc, rp[..., None, :], ld_chan, n_quad)
-        return 1.0 - (1.0 - f) * fc
+        def model(rp):          # (..., n_chan) -> (..., n_exp, n_chan)
+            f = transit_depth_curve(zc, rp[..., None, :], ld_chan, n_quad)
+            return 1.0 - (1.0 - f) * fc
 
-    def grad_and_curvature(rp):
-        with torch.enable_grad():
-            r = rp.detach().requires_grad_(True)
-            chi2 = torch.sum(wc * (model(r) - lc) ** 2, dim=-2)
-            g, = torch.autograd.grad(chi2.sum(), r, create_graph=True)
-            h, = torch.autograd.grad(g.sum(), r)
-        return g.detach(), h
+        def grad_and_curvature(rp):
+            with torch.enable_grad():
+                r = rp.detach().requires_grad_(True)
+                chi2 = torch.sum(wc * (model(r) - lc) ** 2, dim=-2)
+                g, = torch.autograd.grad(chi2.sum(), r, create_graph=True)
+                h, = torch.autograd.grad(g.sum(), r)
+            return g.detach(), h
 
-    rp = torch.as_tensor(rp_init, dtype=torch.float32, device=dev).expand(
-        lc.shape[:-2] + (n_chan,)).clone()
-    for _ in range(n_newton):
-        g, h = grad_and_curvature(rp)
-        step = g / torch.where(torch.abs(h) > 1e-12, h, 1e-12)
-        rp = torch.clamp(rp - step, 0.01, 0.5)
-    resid = model(rp).detach() - lc
-    noise_var = (torch.sum(wc * resid ** 2, dim=-2)
-                 / torch.clamp_min(torch.sum(w) - 1.0, 1.0))
-    h = torch.clamp_min(grad_and_curvature(rp)[1], 1e-12)
-    var_rp = 2.0 * noise_var / h
-    if baseline_var:
-        _, mprime = torch.func.jvp(model, (rp,), (torch.ones_like(rp),))
-        drp_deps = 2.0 * torch.sum(wc * mprime * lc, dim=-2) / h
-        n_oot = torch.clamp_min(torch.sum(w * oot_f), 1.0)
-        var_rp = var_rp + drp_deps ** 2 * noise_var / n_oot
-    sigma = torch.sqrt(var_rp)
-    if red_noise:
-        sigma = sigma * _beta_red(resid.transpose(-1, -2), w,
-                                  max(n_exp // 8, 2))
-    return rp, sigma
+        rp = torch.as_tensor(rp_init, dtype=torch.float32, device=dev).expand(
+            lc.shape[:-2] + (n_chan,)).clone()
+        for _ in range(n_newton):
+            g, h = grad_and_curvature(rp)
+            step = g / torch.where(torch.abs(h) > 1e-12, h, 1e-12)
+            rp = torch.clamp(rp - step, 0.01, 0.5)
+        resid = model(rp).detach() - lc
+        noise_var = (torch.sum(wc * resid ** 2, dim=-2)
+                     / torch.clamp_min(torch.sum(w) - 1.0, 1.0))
+        h = torch.clamp_min(grad_and_curvature(rp)[1], 1e-12)
+        var_rp = 2.0 * noise_var / h
+        if baseline_var:
+            _, mprime = torch.func.jvp(model, (rp,), (torch.ones_like(rp),))
+            drp_deps = 2.0 * torch.sum(wc * mprime * lc, dim=-2) / h
+            n_oot = torch.clamp_min(torch.sum(w * oot_f), 1.0)
+            var_rp = var_rp + drp_deps ** 2 * noise_var / n_oot
+        sigma = torch.sqrt(var_rp)
+        if red_noise:
+            sigma = sigma * _beta_red(resid.transpose(-1, -2), w,
+                                      max(n_exp // 8, 2))
+        return rp, sigma
 
 
 def common_mode_correct(white_lc: torch.Tensor, channel_lc: torch.Tensor,
@@ -1450,23 +1452,27 @@ def _lm_minimize(resid, theta0: torch.Tensor, n_steps: int,
     accepted or rejected by ``torch.where`` (a NaN chi^2 compares false, so
     its step is rejected), lambda a 0-dim tensor; no host sync. Shared by
     :func:`fit_white_ramp` and :func:`fit_white_recte`; batched over
-    starting points with ``torch.func.vmap``. Returns (theta, chi2)."""
+    starting points with ``torch.func.vmap``. Each step is an ``lm.step``
+    span (``utils.profiling``); under ``vmap`` (``fit_white_ramp``'s
+    ``fit_geometry`` seeds) one span covers the step of every start.
+    Returns (theta, chi2)."""
     nd = theta0.shape[0]
     eye = torch.eye(nd, dtype=torch.float32, device=theta0.device)
     theta = theta0
     chi2 = torch.sum(resid(theta0) ** 2)
     lam = torch.tensor(lam0, dtype=torch.float32, device=theta0.device)
     for _ in range(n_steps):
-        JTJ, g = _lm_normal_eqs(resid, theta)
-        diag = torch.diagonal(JTJ)
-        ridge = 1e-7 * diag.sum() / nd + 1e-12
-        A = JTJ + lam * torch.diag_embed(diag) + ridge * eye
-        theta_new = theta - torch.linalg.solve_ex(A, g)[0]
-        chi2_new = torch.sum(resid(theta_new) ** 2)
-        ok = chi2_new < chi2
-        theta = torch.where(ok, theta_new, theta)
-        lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-8, 1e8)
-        chi2 = torch.where(ok, chi2_new, chi2)
+        with span("lm.step"):
+            JTJ, g = _lm_normal_eqs(resid, theta)
+            diag = torch.diagonal(JTJ)
+            ridge = 1e-7 * diag.sum() / nd + 1e-12
+            A = JTJ + lam * torch.diag_embed(diag) + ridge * eye
+            theta_new = theta - torch.linalg.solve_ex(A, g)[0]
+            chi2_new = torch.sum(resid(theta_new) ** 2)
+            ok = chi2_new < chi2
+            theta = torch.where(ok, theta_new, theta)
+            lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-8, 1e8)
+            chi2 = torch.where(ok, chi2_new, chi2)
     return theta, chi2
 
 
@@ -1539,114 +1545,116 @@ def fit_white_ramp(white_lc: torch.Tensor, exp_mid_s: torch.Tensor,
     ``clip_sigma`` robust sigmas (1.4826 x the MAD of the baseline
     residuals, NaN-skipping medians as ``jnp.nanmedian``) and refits.
     """
-    lc = torch.as_tensor(white_lc).to(torch.float32)
-    dev = lc.device
-    t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
-    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
-    t_orb, first = orbit_phase(t, gap_s)
-    firstf = first.to(torch.float32)
-    t_day = (t - t.mean()) / 86400.0
-    oot = out_of_transit_mask(t, orbit).to(torch.float32)
-    c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
-    ndim = 9 if fit_geometry else 6
-    z_fix, infr_fix = projected_separation(t, orbit)
-    rp_geom = torch.as_tensor(rp_init, dtype=torch.float32, device=dev)
+    with span("fit.white"):
+        lc = torch.as_tensor(white_lc).to(torch.float32)
+        dev = lc.device
+        t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
+        ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+        t_orb, first = orbit_phase(t, gap_s)
+        firstf = first.to(torch.float32)
+        t_day = (t - t.mean()) / 86400.0
+        oot = out_of_transit_mask(t, orbit).to(torch.float32)
+        c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
+        ndim = 9 if fit_geometry else 6
+        z_fix, infr_fix = projected_separation(t, orbit)
+        rp_geom = torch.as_tensor(rp_init, dtype=torch.float32, device=dev)
 
-    def orbit_of(theta):
-        if theta.shape[0] == 6:
-            return orbit
-        return dataclasses.replace(
-            orbit, t0_s=orbit.t0_s + theta[6],
-            sma_rs=_clip(theta[7], 1.5, 50.0),
-            inc_rad=torch.arccos(_clip(theta[8], 0.0, 0.6)))
+        def orbit_of(theta):
+            if theta.shape[0] == 6:
+                return orbit
+            return dataclasses.replace(
+                orbit, t0_s=orbit.t0_s + theta[6],
+                sma_rs=_clip(theta[7], 1.5, 50.0),
+                inc_rad=torch.arccos(_clip(theta[8], 0.0, 0.6)))
 
-    def model(theta):
-        if theta.shape[0] == 6:
-            z, in_front = z_fix, infr_fix
-        else:
-            z, in_front = projected_separation(t, orbit_of(theta))
-        vis = eclipse_visibility(z, in_front, rp_geom) if eclipse else None
-        return ramp_transit_model(theta[:6], t_day, t_orb, firstf, z,
-                                  in_front, ld, n_quad, vis)
+        def model(theta):
+            if theta.shape[0] == 6:
+                z, in_front = z_fix, infr_fix
+            else:
+                z, in_front = projected_separation(t, orbit_of(theta))
+            vis = eclipse_visibility(z, in_front, rp_geom) if eclipse else None
+            return ramp_transit_model(theta[:6], t_day, t_orb, firstf, z,
+                                      in_front, ld, n_quad, vis)
 
-    # eclipse mode has no transit factor: in-transit epochs stay out
-    fit_mask = oot if eclipse else torch.ones_like(lc)
+        # eclipse mode has no transit factor: in-transit epochs stay out
+        fit_mask = oot if eclipse else torch.ones_like(lc)
 
-    def resid(theta):
-        return (model(theta)[0] - lc) * fit_mask
+        def resid(theta):
+            return (model(theta)[0] - lc) * fit_mask
 
-    if fit_geometry and eclipse:
-        raise ValueError("fit_geometry is a transit-mode feature "
-                         "(fit the ephemeris on a transit visit)")
-    rp0 = torch.as_tensor(fp_init if eclipse else rp_init,
-                          dtype=torch.float32, device=dev).reshape(())
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
-    theta0 = torch.stack([c0, rp0, f32(0.0), f32(2e-3), f32(4e-3),
-                          f32(math.log(250.0))])
-    # stage 1: the 6-parameter fit; the geometry's landscape is nonconvex
-    # from a cold start
-    theta, chi2 = _lm_minimize(resid, theta0, n_iter)
-    normal_eqs = partial(_lm_normal_eqs, resid)
-    if fit_geometry:
-        sma0 = torch.as_tensor(orbit.sma_rs, dtype=torch.float32,
-                               device=dev).reshape(())
-        cosi0 = torch.cos(torch.as_tensor(
-            orbit.inc_rad, dtype=torch.float32, device=dev)).reshape(())
-        dt0_grid = torch.linspace(-t0_window_s, t0_window_s, 13,
-                                  dtype=torch.float32, device=dev)
+        if fit_geometry and eclipse:
+            raise ValueError("fit_geometry is a transit-mode feature "
+                             "(fit the ephemeris on a transit visit)")
+        rp0 = torch.as_tensor(fp_init if eclipse else rp_init,
+                              dtype=torch.float32, device=dev).reshape(())
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        theta0 = torch.stack([c0, rp0, f32(0.0), f32(2e-3), f32(4e-3),
+                              f32(math.log(250.0))])
+        # stage 1: the 6-parameter fit; the geometry's landscape is nonconvex
+        # from a cold start
+        theta, chi2 = _lm_minimize(resid, theta0, n_iter)
+        normal_eqs = partial(_lm_normal_eqs, resid)
+        if fit_geometry:
+            sma0 = torch.as_tensor(orbit.sma_rs, dtype=torch.float32,
+                                   device=dev).reshape(())
+            cosi0 = torch.cos(torch.as_tensor(
+                orbit.inc_rad, dtype=torch.float32, device=dev)).reshape(())
+            dt0_grid = torch.linspace(-t0_window_s, t0_window_s, 13,
+                                      dtype=torch.float32, device=dev)
 
-        def seed_fit(dt0):
-            th = torch.cat([theta, torch.stack([dt0, sma0, cosi0])])
-            return _lm_minimize(resid, th, 25)
+            def seed_fit(dt0):
+                th = torch.cat([theta, torch.stack([dt0, sma0, cosi0])])
+                return _lm_minimize(resid, th, 25)
 
-        ths, c2s = torch.func.vmap(seed_fit)(dt0_grid)
-        theta = ths.index_select(0, torch.argmin(c2s).reshape(1))[0]
-        theta, chi2 = _lm_minimize(resid, theta, n_iter)
+            ths, c2s = torch.func.vmap(seed_fit)(dt0_grid)
+            theta = ths.index_select(0, torch.argmin(c2s).reshape(1))[0]
+            theta, chi2 = _lm_minimize(resid, theta, n_iter)
 
-    w_keep = torch.ones_like(lc)
-    if clip_sigma is not None:
-        # one exposure per round at most; the scale is the baseline
-        # residuals' robust scatter (out of eclipse and transit in eclipse
-        # mode), which an unmodelled in-transit feature cannot inflate
-        if eclipse:
-            vis0 = eclipse_visibility(z_fix, infr_fix, rp_geom)
-            scale_mask = (vis0 > 0.999).to(torch.float32) * fit_mask
-        else:
-            scale_mask = oot
-        idx = torch.arange(lc.shape[0], device=dev)
-        for _ in range(clip_rounds):
-            r = resid(theta)
-            kept = scale_mask * w_keep
-            r_oot = torch.where(kept > 0.0, r, math.nan)
-            med = _median(r_oot, 0, nan=True)
-            sig = 1.4826 * _median(torch.abs(r_oot - med), 0, nan=True)
-            sig = torch.maximum(
-                sig, 1e-9 * torch.clamp_min(torch.abs(c0), 1e-12))
-            dev_r = torch.abs(r - med) * w_keep   # clipped points stay out
-            hit = torch.amax(dev_r) > clip_sigma * sig   # NaN sig: False
-            w_keep = torch.where((idx == torch.argmax(dev_r)) & hit, 0.0,
-                                 w_keep)
-            wres = (lambda th, _w=w_keep: _w * resid(th))
-            theta, chi2 = _lm_minimize(wres, theta, n_iter)
-            normal_eqs = partial(_lm_normal_eqs, wres)
+        w_keep = torch.ones_like(lc)
+        if clip_sigma is not None:
+            # one exposure per round at most; the scale is the baseline
+            # residuals' robust scatter (out of eclipse and transit in eclipse
+            # mode), which an unmodelled in-transit feature cannot inflate
+            if eclipse:
+                vis0 = eclipse_visibility(z_fix, infr_fix, rp_geom)
+                scale_mask = (vis0 > 0.999).to(torch.float32) * fit_mask
+            else:
+                scale_mask = oot
+            idx = torch.arange(lc.shape[0], device=dev)
+            for _ in range(clip_rounds):
+                r = resid(theta)
+                kept = scale_mask * w_keep
+                r_oot = torch.where(kept > 0.0, r, math.nan)
+                med = _median(r_oot, 0, nan=True)
+                sig = 1.4826 * _median(torch.abs(r_oot - med), 0, nan=True)
+                sig = torch.maximum(
+                    sig, 1e-9 * torch.clamp_min(torch.abs(c0), 1e-12))
+                dev_r = torch.abs(r - med) * w_keep   # clipped points stay out
+                hit = torch.amax(dev_r) > clip_sigma * sig   # NaN sig: False
+                w_keep = torch.where((idx == torch.argmax(dev_r)) & hit, 0.0,
+                                     w_keep)
+                wres = (lambda th, _w=w_keep: _w * resid(th))
+                theta, chi2 = _lm_minimize(wres, theta, n_iter)
+                normal_eqs = partial(_lm_normal_eqs, wres)
 
-    _, sys = model(theta)
-    JTJ, _ = normal_eqs(theta)
-    n = (torch.sum(w_keep * fit_mask) if clip_sigma is not None
-         else torch.sum(fit_mask))
-    noise_var = chi2 / torch.clamp_min(n - ndim, 1.0)
-    eye = torch.eye(ndim, dtype=torch.float32, device=dev)
-    cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
-    rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
-    depth = (torch.clamp(theta[1], -0.02, 0.1) if eclipse
-             else torch.clamp(theta[1], 0.01, 0.5))
-    return RampFit(rp=depth, rp_sigma=rp_sigma, c=theta[0],
-                   slope_per_day=theta[2], hook_amp=theta[3],
-                   hook_amp_first=theta[4],
-                   hook_tau_s=torch.clamp(torch.exp(theta[5]), 30.0, 20000.0),
-                   template=sys, chi2=chi2,
-                   t0_offset_s=theta[6] if fit_geometry else f32(0.0),
-                   orbit=orbit_of(theta), weights=w_keep)
+        _, sys = model(theta)
+        JTJ, _ = normal_eqs(theta)
+        n = (torch.sum(w_keep * fit_mask) if clip_sigma is not None
+             else torch.sum(fit_mask))
+        noise_var = chi2 / torch.clamp_min(n - ndim, 1.0)
+        eye = torch.eye(ndim, dtype=torch.float32, device=dev)
+        cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
+        rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
+        depth = (torch.clamp(theta[1], -0.02, 0.1) if eclipse
+                 else torch.clamp(theta[1], 0.01, 0.5))
+        return RampFit(rp=depth, rp_sigma=rp_sigma, c=theta[0],
+                       slope_per_day=theta[2], hook_amp=theta[3],
+                       hook_amp_first=theta[4],
+                       hook_tau_s=torch.clamp(torch.exp(theta[5]), 30.0,
+                                              20000.0),
+                       template=sys, chi2=chi2,
+                       t0_offset_s=theta[6] if fit_geometry else f32(0.0),
+                       orbit=orbit_of(theta), weights=w_keep)
 
 
 def ramp_detrend(channel_lc: torch.Tensor, ramp, exp_mid_s: torch.Tensor,
@@ -1654,11 +1662,12 @@ def ramp_detrend(channel_lc: torch.Tensor, ramp, exp_mid_s: torch.Tensor,
     """Divide a fitted systematic template (``ramp.template``, a RampFit or
     RecteWhiteFit) out of channel curves (n_exp, n_chan) and re-normalise
     each to its out-of-transit baseline."""
-    w = out_of_transit_mask(exp_mid_s, orbit).to(channel_lc.dtype)
-    n = torch.clamp_min(torch.sum(w), 1.0)
-    corr = channel_lc / ramp.template[:, None]
-    base = torch.sum(corr * w[:, None], dim=0) / n
-    return corr / base[None, :]
+    with span("fit.detrend"):
+        w = out_of_transit_mask(exp_mid_s, orbit).to(channel_lc.dtype)
+        n = torch.clamp_min(torch.sum(w), 1.0)
+        corr = channel_lc / ramp.template[:, None]
+        base = torch.sum(corr * w[:, None], dim=0) / n
+        return corr / base[None, :]
 
 
 @dataclass

@@ -19,12 +19,18 @@ Usage:
         [--clip-sigma K] [--sky-fit] [--mcmc [N]] [--direct-image]
         [--wl-range LO:HI] [--rows Y0:Y1 --cols X0:X1 --bg-rows B0:B1]
         [--save-spectra] [--save-lc] [--plot] [-o reduced.json] [--cpu]
+        [--trace DIR]
 
 Files are read on the host; every step after that runs on the CUDA card
 (without one it fails unless ``--cpu`` is given). The JSON report carries
 the JAX package's keys and rounding. ``--mcmc [N]`` adds the ensemble-MCMC
 posteriors of the white curve and of every channel (``mcmc.py``, N steps,
 transit and eclipse modes) under the JAX package's report keys.
+``--trace DIR`` runs the reduction with the program's spans on and under
+``torch.profiler``: ``DIR/trace.json`` is the Chrome trace (the spans
+appear in it as ``wt:<name>``), ``DIR/spans.json`` the spans' records
+(``reduce.extract``, ``reduce.fit`` and the fits under it), the host-sync
+count on a card, and each name's count, total and self seconds.
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ from wayne_tpu_torch.reduction import (
     DQ_BAD_BITS, DQ_REF_PIXEL, _median, good_diff_masks_from_dq,
     linearize_reads, ramp_slope_frame, ref_pixel_correct, repair_read_stack,
 )
+from wayne_tpu_torch.utils import profiling
+from wayne_tpu_torch.utils.profiling import span
 
 
 def collect_visit(visit_dir: str) -> list[str]:
@@ -537,13 +545,26 @@ def _parser() -> argparse.ArgumentParser:
                         help="also write a quicklook PNG (needs matplotlib)")
     parser.add_argument("--cpu", action="store_true",
                         help="run the plain PyTorch path on the CPU")
+    parser.add_argument("--trace", default=None, metavar="DIR",
+                        help="write DIR/trace.json (torch.profiler) and "
+                             "DIR/spans.json (the program's spans, the "
+                             "host-sync count and per-span totals)")
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
+    if args.trace is None:
+        return _reduce(args)
+    with profiling.tracing() as spans, profiling.device_trace(args.trace):
+        rc = _reduce(args)
+    spans.write(os.path.join(args.trace, "spans.json"))
+    print(profiling.StageTimers(spans.spans).report())
+    return rc
 
+
+def _reduce(args: argparse.Namespace) -> int:
     from wayne_tpu_torch.calibration import (
         quadrant_map, sequence_tables_scope)
     from wayne_tpu_torch.config import load_yaml
@@ -609,11 +630,12 @@ def main(argv: list[str] | None = None) -> int:
         sky_components = {"names": names, "frames": torch.stack(frames)}
     qmap = (None if args.no_amp_offset else quadrant_map(
         cfg.subarray, tables.subarray_corner.tolist(), device=dev))
-    spectra, mids, (yw, xw, bg), scan_angs, sky_fit = extract_from_files(
-        paths, gain, args.estimator, use_dq=not args.no_dq,
-        extract=args.extract, read_noise_e=tables.readout_consts[0],
-        windows=windows, nlin=nlin, sky_components=sky_components,
-        quad_map=qmap, device=dev)
+    with span("reduce.extract"):
+        spectra, mids, (yw, xw, bg), scan_angs, sky_fit = extract_from_files(
+            paths, gain, args.estimator, use_dq=not args.no_dq,
+            extract=args.extract, read_noise_e=tables.readout_consts[0],
+            windows=windows, nlin=nlin, sky_components=sky_components,
+            quad_map=qmap, device=dev)
     label = "explicit" if windows is not None else "auto"
     print(f"{label} windows: rows {yw}, cols {xw}, background rows {bg}")
 
@@ -793,205 +815,211 @@ def main(argv: list[str] | None = None) -> int:
     phase_extra = None
     rp_sig_rel = None          # divide-white shape-error component
     sigma_white_dw = None      # divide-white common-mode (white-fit) sigma
-    if args.mode in ("eclipse", "phase"):
-        from wayne_tpu_torch.ops.kepler import projected_separation
-        from wayne_tpu_torch.ops.transit import eclipse_visibility
+    with span("reduce.fit"):
+        if args.mode in ("eclipse", "phase"):
+            from wayne_tpu_torch.ops.kepler import projected_separation
+            from wayne_tpu_torch.ops.transit import eclipse_visibility
 
-        z_t, infr_t = projected_separation(t, orbit)
-        vis = eclipse_visibility(z_t, infr_t, rp0)
-        no_cover = float(vis.max() - vis.min()) < 0.1
-    if args.mode == "eclipse":
-        from wayne_tpu_torch.reduction import fit_eclipse_depths
+            z_t, infr_t = projected_separation(t, orbit)
+            vis = eclipse_visibility(z_t, infr_t, rp0)
+            no_cover = float(vis.max() - vis.min()) < 0.1
+        if args.mode == "eclipse":
+            from wayne_tpu_torch.reduction import fit_eclipse_depths
 
-        # without occultation coverage the design matrix is singular
-        if no_cover:
-            raise SystemExit(
-                "no secondary-eclipse coverage in this visit (planet "
-                "visibility barely changes) — check start_mjd/t0/period "
-                "or use --mode transit")
-        if detrend == "recte":
-            raise SystemExit("--detrend recte is wired for --mode "
-                             "transit only; use ramp (it has an "
-                             "eclipse=True white model) or divide-white")
-        if detrend == "ramp":
-            from wayne_tpu_torch.reduction import fit_white_ramp
+            # without occultation coverage the design matrix is singular
+            if no_cover:
+                raise SystemExit(
+                    "no secondary-eclipse coverage in this visit (planet "
+                    "visibility barely changes) — check start_mjd/t0/period "
+                    "or use --mode transit")
+            if detrend == "recte":
+                raise SystemExit("--detrend recte is wired for --mode "
+                                 "transit only; use ramp (it has an "
+                                 "eclipse=True white model) or divide-white")
+            if detrend == "ramp":
+                from wayne_tpu_torch.reduction import fit_white_ramp
 
-            wfit = fit_white_ramp(white, t, orbit, ld, rp0, eclipse=True,
-                                  clip_sigma=args.clip_sigma)
-            if args.clip_sigma is not None:
-                depth_weights = wfit.weights
-                note_clips(wfit)
-            # fit_eclipse_depths absorbs any per-channel baseline
-            chan = chan / wfit.template[:, None]
+                wfit = fit_white_ramp(white, t, orbit, ld, rp0, eclipse=True,
+                                      clip_sigma=args.clip_sigma)
+                if args.clip_sigma is not None:
+                    depth_weights = wfit.weights
+                    note_clips(wfit)
+                # fit_eclipse_depths absorbs any per-channel baseline
+                chan = chan / wfit.template[:, None]
+                white_fit_report = {
+                    "fp_over_fs": round(float(wfit.rp), 7),
+                    "fp_sigma": round(float(wfit.rp_sigma), 7),
+                    "slope_per_day": round(float(wfit.slope_per_day), 6),
+                    "hook_amp": round(float(wfit.hook_amp), 6),
+                    "hook_amp_first_orbit": round(
+                        float(wfit.hook_amp_first), 6),
+                    "hook_tau_s": round(float(wfit.hook_tau_s), 2),
+                    **({"clip_sigma": args.clip_sigma,
+                        "clipped_exposures": clipped_list(wfit)}
+                       if args.clip_sigma is not None else {}),
+                }
+                print(f"white eclipse ramp fit: fp = "
+                      f"{white_fit_report['fp_over_fs']:.6f} +- "
+                      f"{white_fit_report['fp_sigma']:.6f}")
+            elif detrend == "divide-white":
+                # eclipse-aware common mode against the fitted white ECLIPSE
+                # model; its Fp/Fs error shifts every channel coherently
+                fp_w, fp_w_sig = fit_eclipse_depths(white[:, None], t, orbit,
+                                                    rp0)
+                sigma_white_dw = fp_w_sig[0]
+                chan = chan / (white / (1.0 + fp_w[0] * vis))[:, None]
+            rp_hat, rp_sig = fit_eclipse_depths(chan, t, orbit, rp0,
+                                                weights=depth_weights)
+            if sigma_white_dw is not None:
+                rp_sig_rel = rp_sig
+                rp_sig = torch.sqrt(rp_sig ** 2 + sigma_white_dw ** 2)
+            value_key, sigma_key = "fp_over_fs", "fp_sigma"
+        elif args.mode == "phase":
+            from wayne_tpu_torch.ops.kepler import orbital_phase_angle
+            from wayne_tpu_torch.reduction import fit_phase_curve
+
+            if detrend in ("ramp", "recte"):
+                raise SystemExit(f"--detrend {detrend} is not wired for "
+                                 "--mode phase; use divide-white or none")
+            if no_cover:
+                raise SystemExit(
+                    "no secondary-eclipse coverage in this visit (planet "
+                    "visibility barely changes), so Fp/Fs cannot be "
+                    "separated from the baseline — cover the eclipse (an "
+                    "explicit exp_start_times schedule helps) or use "
+                    "--mode transit")
+            phi = orbital_phase_angle(t, orbit)
+            wfit = fit_phase_curve(white, t, orbit, rp0)
             white_fit_report = {
-                "fp_over_fs": round(float(wfit.rp), 7),
-                "fp_sigma": round(float(wfit.rp_sigma), 7),
-                "slope_per_day": round(float(wfit.slope_per_day), 6),
-                "hook_amp": round(float(wfit.hook_amp), 6),
-                "hook_amp_first_orbit": round(float(wfit.hook_amp_first), 6),
-                "hook_tau_s": round(float(wfit.hook_tau_s), 2),
-                **({"clip_sigma": args.clip_sigma,
-                    "clipped_exposures": clipped_list(wfit)}
-                   if args.clip_sigma is not None else {}),
+                "fp_over_fs": round(float(wfit.fp), 7),
+                "fp_sigma": round(float(wfit.fp_sigma), 7),
+                "phase_amplitude": round(float(wfit.amp), 4),
+                "phase_amplitude_sigma": round(float(wfit.amp_sigma), 4),
+                "hot_spot_offset_deg": round(
+                    float(np.rad2deg(float(wfit.offset_rad))), 2),
+                "baseline_slope": round(float(wfit.slope), 6),
             }
-            print(f"white eclipse ramp fit: fp = "
-                  f"{white_fit_report['fp_over_fs']:.6f} +- "
-                  f"{white_fit_report['fp_sigma']:.6f}")
-        elif detrend == "divide-white":
-            # eclipse-aware common mode against the fitted white ECLIPSE
-            # model; its Fp/Fs error shifts every channel coherently
-            fp_w, fp_w_sig = fit_eclipse_depths(white[:, None], t, orbit,
-                                                rp0)
-            sigma_white_dw = fp_w_sig[0]
-            chan = chan / (white / (1.0 + fp_w[0] * vis))[:, None]
-        rp_hat, rp_sig = fit_eclipse_depths(chan, t, orbit, rp0,
-                                            weights=depth_weights)
-        if sigma_white_dw is not None:
-            rp_sig_rel = rp_sig
-            rp_sig = torch.sqrt(rp_sig ** 2 + sigma_white_dw ** 2)
-        value_key, sigma_key = "fp_over_fs", "fp_sigma"
-    elif args.mode == "phase":
-        from wayne_tpu_torch.ops.kepler import orbital_phase_angle
-        from wayne_tpu_torch.reduction import fit_phase_curve
+            print(f"white phase fit: fp = {white_fit_report['fp_over_fs']:.6f}"
+                  f" +- {white_fit_report['fp_sigma']:.6f}, A = "
+                  f"{white_fit_report['phase_amplitude']:.3f}, offset "
+                  f"{white_fit_report['hot_spot_offset_deg']:.1f} deg")
+            if detrend == "divide-white":
+                # phase-aware common mode: white over the white MODEL, so the
+                # template carries only the instrument systematics
+                mod_w = 1.0 - wfit.amp * 0.5 * (
+                    1.0 - torch.cos(phi + wfit.offset_rad))
+                model_w = 1.0 + wfit.fp * mod_w * vis
+                chan = chan / (white / model_w)[:, None]
+            pf = fit_phase_curve(chan, t, orbit, rp0)
+            rp_hat, rp_sig = pf.fp, pf.fp_sigma
+            offs_deg = np.rad2deg(pf.offset_rad.cpu().numpy())
+            phase_extra = [
+                {"phase_amplitude": round(float(pf.amp[i]), 4),
+                 "phase_amplitude_sigma": round(float(pf.amp_sigma[i]), 4),
+                 "hot_spot_offset_deg": round(float(offs_deg[i]), 2)}
+                for i in range(int(pf.fp.shape[0]))]
+            value_key, sigma_key = "fp_over_fs", "fp_sigma"
+        else:
+            if detrend == "divide-white":
+                # keep the white fit's depth sigma: the template's error
+                # shifts every channel depth coherently
+                chan, sigma_white_dw = common_mode_correct(
+                    white, chan, t, orbit, ld, rp0, return_white_sigma=True)
+            elif detrend == "ramp":
+                from wayne_tpu_torch.reduction import (
+                    fit_white_ramp, ramp_detrend)
 
-        if detrend in ("ramp", "recte"):
-            raise SystemExit(f"--detrend {detrend} is not wired for "
-                             "--mode phase; use divide-white or none")
-        if no_cover:
-            raise SystemExit(
-                "no secondary-eclipse coverage in this visit (planet "
-                "visibility barely changes), so Fp/Fs cannot be "
-                "separated from the baseline — cover the eclipse (an "
-                "explicit exp_start_times schedule helps) or use "
-                "--mode transit")
-        phi = orbital_phase_angle(t, orbit)
-        wfit = fit_phase_curve(white, t, orbit, rp0)
-        white_fit_report = {
-            "fp_over_fs": round(float(wfit.fp), 7),
-            "fp_sigma": round(float(wfit.fp_sigma), 7),
-            "phase_amplitude": round(float(wfit.amp), 4),
-            "phase_amplitude_sigma": round(float(wfit.amp_sigma), 4),
-            "hot_spot_offset_deg": round(
-                float(np.rad2deg(float(wfit.offset_rad))), 2),
-            "baseline_slope": round(float(wfit.slope), 6),
-        }
-        print(f"white phase fit: fp = {white_fit_report['fp_over_fs']:.6f}"
-              f" +- {white_fit_report['fp_sigma']:.6f}, A = "
-              f"{white_fit_report['phase_amplitude']:.3f}, offset "
-              f"{white_fit_report['hot_spot_offset_deg']:.1f} deg")
-        if detrend == "divide-white":
-            # phase-aware common mode: white over the white MODEL, so the
-            # template carries only the instrument systematics
-            mod_w = 1.0 - wfit.amp * 0.5 * (
-                1.0 - torch.cos(phi + wfit.offset_rad))
-            model_w = 1.0 + wfit.fp * mod_w * vis
-            chan = chan / (white / model_w)[:, None]
-        pf = fit_phase_curve(chan, t, orbit, rp0)
-        rp_hat, rp_sig = pf.fp, pf.fp_sigma
-        offs_deg = np.rad2deg(pf.offset_rad.cpu().numpy())
-        phase_extra = [
-            {"phase_amplitude": round(float(pf.amp[i]), 4),
-             "phase_amplitude_sigma": round(float(pf.amp_sigma[i]), 4),
-             "hot_spot_offset_deg": round(float(offs_deg[i]), 2)}
-            for i in range(int(pf.fp.shape[0]))]
-        value_key, sigma_key = "fp_over_fs", "fp_sigma"
-    else:
-        if detrend == "divide-white":
-            # keep the white fit's depth sigma: the template's error
-            # shifts every channel depth coherently
-            chan, sigma_white_dw = common_mode_correct(
-                white, chan, t, orbit, ld, rp0, return_white_sigma=True)
-        elif detrend == "ramp":
-            from wayne_tpu_torch.reduction import (
-                fit_white_ramp, ramp_detrend)
+                wfit = fit_white_ramp(white, t, orbit, ld, rp0,
+                                      fit_geometry=args.fit_geometry,
+                                      clip_sigma=args.clip_sigma)
+                if args.clip_sigma is not None:
+                    depth_weights = wfit.weights
+                    note_clips(wfit)
+                if args.fit_geometry:
+                    dt0 = abs(float(wfit.t0_offset_s))
+                    if dt0 > 600.0:
+                        print(f"warning: fitted t0 is {dt0:.0f} s from the "
+                              "parameter file's — the alignment/"
+                              "normalisation above used the stale ephemeris; "
+                              "re-run with the fitted t0 in the YAML for "
+                              "clean channels")
+                    orbit = wfit.orbit        # held for the channel fits
+                    # the posteriors sample around this fitted ephemeris;
+                    # their t0 offsets are shifted back to the YAML's zero
+                    # point
+                    t0_ref_shift_s = float(wfit.t0_offset_s)
+                chan = ramp_detrend(chan, wfit, t, orbit)
+                white_fit_report = {
+                    "rp_over_rs": round(float(wfit.rp), 6),
+                    "rp_sigma": round(float(wfit.rp_sigma), 6),
+                    "slope_per_day": round(float(wfit.slope_per_day), 6),
+                    "hook_amp": round(float(wfit.hook_amp), 6),
+                    "hook_amp_first_orbit": round(
+                        float(wfit.hook_amp_first), 6),
+                    "hook_tau_s": round(float(wfit.hook_tau_s), 2),
+                    **({"fitted_geometry": {
+                        "t0_offset_s": round(float(wfit.t0_offset_s), 2),
+                        "sma_over_rs": round(float(wfit.orbit.sma_rs), 4),
+                        "inclination_deg": round(float(
+                            np.rad2deg(float(wfit.orbit.inc_rad))), 3)}}
+                       if args.fit_geometry else {}),
+                    **({"clip_sigma": args.clip_sigma,
+                        "clipped_exposures": clipped_list(wfit)}
+                       if args.clip_sigma is not None else {}),
+                }
+                ratio = float(wfit.hook_amp_first) / max(float(wfit.hook_amp),
+                                                         1e-9)
+                print(f"white ramp fit: rp="
+                      f"{white_fit_report['rp_over_rs']:.5f}"
+                      f" +- {white_fit_report['rp_sigma']:.5f}, slope "
+                      f"{white_fit_report['slope_per_day']:+.5f}/day, hook "
+                      f"{white_fit_report['hook_amp']:.5f} (x{ratio:.2f} "
+                      f"orbit 1), tau {white_fit_report['hook_tau_s']:.0f} s")
+            elif detrend == "recte":
+                from wayne_tpu_torch.reduction import (
+                    fit_white_recte, ramp_detrend)
 
-            wfit = fit_white_ramp(white, t, orbit, ld, rp0,
-                                  fit_geometry=args.fit_geometry,
-                                  clip_sigma=args.clip_sigma)
-            if args.clip_sigma is not None:
-                depth_weights = wfit.weights
-                note_clips(wfit)
-            if args.fit_geometry:
-                dt0 = abs(float(wfit.t0_offset_s))
-                if dt0 > 600.0:
-                    print(f"warning: fitted t0 is {dt0:.0f} s from the "
-                          "parameter file's — the alignment/normalisation "
-                          "above used the stale ephemeris; re-run with "
-                          "the fitted t0 in the YAML for clean channels")
-                orbit = wfit.orbit        # held for the channel fits
-                # the posteriors sample around this fitted ephemeris; their
-                # t0 offsets are shifted back to the YAML's zero point
-                t0_ref_shift_s = float(wfit.t0_offset_s)
-            chan = ramp_detrend(chan, wfit, t, orbit)
-            white_fit_report = {
-                "rp_over_rs": round(float(wfit.rp), 6),
-                "rp_sigma": round(float(wfit.rp_sigma), 6),
-                "slope_per_day": round(float(wfit.slope_per_day), 6),
-                "hook_amp": round(float(wfit.hook_amp), 6),
-                "hook_amp_first_orbit": round(float(wfit.hook_amp_first), 6),
-                "hook_tau_s": round(float(wfit.hook_tau_s), 2),
-                **({"fitted_geometry": {
-                    "t0_offset_s": round(float(wfit.t0_offset_s), 2),
-                    "sma_over_rs": round(float(wfit.orbit.sma_rs), 4),
-                    "inclination_deg": round(float(
-                        np.rad2deg(float(wfit.orbit.inc_rad))), 3)}}
-                   if args.fit_geometry else {}),
-                **({"clip_sigma": args.clip_sigma,
-                    "clipped_exposures": clipped_list(wfit)}
-                   if args.clip_sigma is not None else {}),
-            }
-            ratio = float(wfit.hook_amp_first) / max(float(wfit.hook_amp),
-                                                     1e-9)
-            print(f"white ramp fit: rp={white_fit_report['rp_over_rs']:.5f}"
-                  f" +- {white_fit_report['rp_sigma']:.5f}, slope "
-                  f"{white_fit_report['slope_per_day']:+.5f}/day, hook "
-                  f"{white_fit_report['hook_amp']:.5f} (x{ratio:.2f} "
-                  f"orbit 1), tau {white_fit_report['hook_tau_s']:.0f} s")
-        elif detrend == "recte":
-            from wayne_tpu_torch.reduction import (
-                fit_white_recte, ramp_detrend)
+                # the white aperture's effective illuminated-pixel rate; the
+                # fitted rate scale calibrates the bright/faint mix
+                exptime = float(hdr0.get("EXPTIME", mids[0] * 2.0))
+                n_ap = max((yw[1] - yw[0]) * (xw[1] - xw[0]), 1)
+                rate0 = float(white_flux[oot].mean()) / n_ap / exptime
+                wfit = fit_white_recte(white, t, orbit, ld, rp0,
+                                       rate_e_s=rate0, exptime_s=exptime)
+                chan = ramp_detrend(chan, wfit, t, orbit)
+                white_fit_report = {
+                    "rp_over_rs": round(float(wfit.rp), 6),
+                    "rp_sigma": round(float(wfit.rp_sigma), 6),
+                    "slope_per_day": round(float(wfit.slope_per_day), 6),
+                    "f0_slow": round(float(wfit.f0_s), 4),
+                    "f0_fast": round(float(wfit.f0_f), 4),
+                    "rate_e_s_supplied": round(rate0, 3),
+                    "rate_scale_fitted": round(float(wfit.rate_scale), 4),
+                }
+                print(f"white RECTE fit: rp="
+                      f"{white_fit_report['rp_over_rs']:.5f} +- "
+                      f"{white_fit_report['rp_sigma']:.5f}, trap fill "
+                      f"f0_s={white_fit_report['f0_slow']:.3f} "
+                      f"f0_f={white_fit_report['f0_fast']:.3f}, rate "
+                      f"{rate0:.1f} e-/s x "
+                      f"{white_fit_report['rate_scale_fitted']:.2f}")
+            rp_hat, rp_sig = fit_depths(chan, t, orbit, ld_chan, rp0,
+                                        weights=depth_weights)
+            if sigma_white_dw is not None:
+                # sigma_rel is the channel-to-channel shape error; the
+                # quadrature total the absolute one
+                rp_sig_rel = rp_sig
+                rp_sig = torch.sqrt(rp_sig ** 2 + sigma_white_dw ** 2)
+            value_key, sigma_key = "rp_over_rs", "rp_sigma"
 
-            # the white aperture's effective illuminated-pixel rate; the
-            # fitted rate scale calibrates the bright/faint mix
-            exptime = float(hdr0.get("EXPTIME", mids[0] * 2.0))
-            n_ap = max((yw[1] - yw[0]) * (xw[1] - xw[0]), 1)
-            rate0 = float(white_flux[oot].mean()) / n_ap / exptime
-            wfit = fit_white_recte(white, t, orbit, ld, rp0,
-                                   rate_e_s=rate0, exptime_s=exptime)
-            chan = ramp_detrend(chan, wfit, t, orbit)
-            white_fit_report = {
-                "rp_over_rs": round(float(wfit.rp), 6),
-                "rp_sigma": round(float(wfit.rp_sigma), 6),
-                "slope_per_day": round(float(wfit.slope_per_day), 6),
-                "f0_slow": round(float(wfit.f0_s), 4),
-                "f0_fast": round(float(wfit.f0_f), 4),
-                "rate_e_s_supplied": round(rate0, 3),
-                "rate_scale_fitted": round(float(wfit.rate_scale), 4),
-            }
-            print(f"white RECTE fit: rp="
-                  f"{white_fit_report['rp_over_rs']:.5f} +- "
-                  f"{white_fit_report['rp_sigma']:.5f}, trap fill "
-                  f"f0_s={white_fit_report['f0_slow']:.3f} "
-                  f"f0_f={white_fit_report['f0_fast']:.3f}, rate "
-                  f"{rate0:.1f} e-/s x "
-                  f"{white_fit_report['rate_scale_fitted']:.2f}")
-        rp_hat, rp_sig = fit_depths(chan, t, orbit, ld_chan, rp0,
-                                    weights=depth_weights)
-        if sigma_white_dw is not None:
-            # sigma_rel is the channel-to-channel shape error; the
-            # quadrature total the absolute one
-            rp_sig_rel = rp_sig
-            rp_sig = torch.sqrt(rp_sig ** 2 + sigma_white_dw ** 2)
-        value_key, sigma_key = "rp_over_rs", "rp_sigma"
-
-    white_post_report, chan_post = None, None
-    if args.mcmc and args.mode == "phase":
-        raise SystemExit("--mcmc is not wired for --mode phase (the "
-                         "closed-form fit already returns sigmas)")
-    if args.mcmc:
-        white_post_report, chan_post = _posteriors(
-            args, white, chan, t, orbit, ld, ld_chan, rp0, rp_hat,
-            depth_weights, t0_ref_shift_s)
+        white_post_report, chan_post = None, None
+        if args.mcmc and args.mode == "phase":
+            raise SystemExit("--mcmc is not wired for --mode phase (the "
+                             "closed-form fit already returns sigmas)")
+        if args.mcmc:
+            white_post_report, chan_post = _posteriors(
+                args, white, chan, t, orbit, ld, ld_chan, rp0, rp_hat,
+                depth_weights, t0_ref_shift_s)
     mcmc_prefix = "fp" if args.mode == "eclipse" else "rp"
 
     # a dead channel is MARKED unusable, not left to an absurd sigma
