@@ -31,8 +31,10 @@ the functions here take a leading batch axis instead:
 
 Nothing waits for the host: budgets come from static shapes, linear
 solves use ``solve_ex`` (no error check), and the per-hit sums of the
-ensemble path are pairwise masks, not scatters. Medians average the two
-middle values of an even count, as ``jnp.median`` does (:func:`_median`),
+ensemble path are pairwise masks, not scatters. So on a card the
+Levenberg-Marquardt fits replay every step after the first from a CUDA
+graph (:func:`_lm_minimize`). Medians average the two middle values of
+an even count, as ``jnp.median`` does (:func:`_median`),
 not the lower one as ``torch.median``. A clip that a fit differentiates
 is written ``minimum(maximum(x, lo), hi)`` (:func:`_clip`): its derivative
 at a bound is 1/2, as ``jnp.clip``'s, where ``torch.clamp``'s is 1.
@@ -42,6 +44,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from dataclasses import dataclass
 from functools import partial
 
@@ -1446,33 +1449,107 @@ def _lm_normal_eqs(resid, theta: torch.Tensor):
     return torch.einsum("ni,nj->ij", J, J), torch.einsum("ni,n->i", J, r)
 
 
+def _lm_step(resid, theta: torch.Tensor, chi2: torch.Tensor,
+             lam: torch.Tensor, eye: torch.Tensor):
+    """One damped Levenberg-Marquardt step of :func:`_lm_minimize`, taken
+    or refused by ``torch.where`` (a NaN chi^2 compares false, so its step
+    is refused); ``eye`` is the (nd, nd) identity. Returns the new (theta,
+    chi2, lambda), each a tensor of its own."""
+    JTJ, g = _lm_normal_eqs(resid, theta)
+    diag = torch.diagonal(JTJ)
+    ridge = 1e-7 * diag.sum() / eye.shape[0] + 1e-12
+    A = JTJ + lam * torch.diag_embed(diag) + ridge * eye
+    theta_new = theta - torch.linalg.solve_ex(A, g)[0]
+    chi2_new = torch.sum(resid(theta_new) ** 2)
+    ok = chi2_new < chi2
+    return (torch.where(ok, theta_new, theta),
+            torch.where(ok, chi2_new, chi2),
+            torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-8, 1e8))
+
+
+def _replayable(theta0: torch.Tensor) -> bool:
+    """Whether :func:`_lm_minimize` replays its steps from a CUDA graph:
+    ``theta0`` is on a card, outside every ``torch.func`` transform (the
+    ``vmap`` of ``fit_white_ramp``'s geometry seeds), does not require
+    grad, and its stream is not capturing already."""
+    return (theta0.is_cuda and not theta0.requires_grad
+            and torch._C._functorch.peek_interpreter_stack() is None
+            and not torch.cuda.is_current_stream_capturing())
+
+
+class _Graphs(threading.local):
+    """Per thread and card: the side stream the LM step is captured on,
+    the memory pool that every capture there shares, and the last graph,
+    which keeps that pool live between calls. Per thread, so that no two
+    threads capture into one pool at once."""
+
+    def __init__(self):
+        self.of: dict[torch.device, list] = {}
+
+
+_graphs = _Graphs()
+
+
+def _lm_replay(resid, state: tuple, eye: torch.Tensor, n_replays: int):
+    """Capture one :func:`_lm_step` from ``state`` (theta, chi2, lambda)
+    into a CUDA graph that writes its result back into ``state``, and
+    replay it ``n_replays`` times on the current stream: the same kernels
+    on the same inputs as the eager steps, with no host sync. Drives
+    ``CUDAGraph`` directly: ``torch.cuda.graph`` synchronises the card and
+    empties the allocator's cache on entry. Returns ``state``."""
+    dev = eye.device
+    with torch.cuda.device(dev):
+        held = _graphs.of.get(dev)        # [side stream, pool, last graph]
+        if held is None:
+            held = _graphs.of[dev] = [torch.cuda.Stream(dev),
+                                      torch.cuda.graph_pool_handle(), None]
+        side, pool, _ = held
+        graph = torch.cuda.CUDAGraph()
+        with span("lm.capture"):
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                # other threads (autograd's, a mesh's workers) may call
+                # CUDA meanwhile: only this thread's calls are checked
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    for s, new in zip(state, _lm_step(resid, *state, eye)):
+                        s.copy_(new)
+                finally:
+                    graph.capture_end()
+        held[2] = graph                   # the previous graph goes
+        for _ in range(n_replays):
+            with span("lm.replay"):
+                graph.replay()
+    return state
+
+
 def _lm_minimize(resid, theta0: torch.Tensor, n_steps: int,
                  lam0: float = 1e-3):
-    """Damped Levenberg-Marquardt with a fixed step count: each step
-    accepted or rejected by ``torch.where`` (a NaN chi^2 compares false, so
-    its step is rejected), lambda a 0-dim tensor; no host sync. Shared by
+    """Damped Levenberg-Marquardt with a fixed step count of
+    :func:`_lm_step`, lambda a 0-dim tensor; no host sync. Shared by
     :func:`fit_white_ramp` and :func:`fit_white_recte`; batched over
-    starting points with ``torch.func.vmap``. Each step is an ``lm.step``
-    span (``utils.profiling``); under ``vmap`` (``fit_white_ramp``'s
-    ``fit_geometry`` seeds) one span covers the step of every start.
-    Returns (theta, chi2)."""
-    nd = theta0.shape[0]
-    eye = torch.eye(nd, dtype=torch.float32, device=theta0.device)
+    starting points with ``torch.func.vmap``. Where :func:`_replayable`,
+    the first step runs eagerly and the rest replay it from a CUDA graph
+    (:func:`_lm_replay`); elsewhere (the CPU, ``vmap``, grad) every step
+    runs eagerly. Spans (``utils.profiling``): an ``lm.step`` per eager
+    step (under ``vmap``, one covers the step of every start), an
+    ``lm.capture`` per capture and an ``lm.replay`` per replay. Returns
+    (theta, chi2)."""
+    eye = torch.eye(theta0.shape[0], dtype=torch.float32,
+                    device=theta0.device)
     theta = theta0
     chi2 = torch.sum(resid(theta0) ** 2)
     lam = torch.tensor(lam0, dtype=torch.float32, device=theta0.device)
-    for _ in range(n_steps):
+    replay = n_steps >= 2 and _replayable(theta0)
+    for _ in range(1 if replay else n_steps):
         with span("lm.step"):
-            JTJ, g = _lm_normal_eqs(resid, theta)
-            diag = torch.diagonal(JTJ)
-            ridge = 1e-7 * diag.sum() / nd + 1e-12
-            A = JTJ + lam * torch.diag_embed(diag) + ridge * eye
-            theta_new = theta - torch.linalg.solve_ex(A, g)[0]
-            chi2_new = torch.sum(resid(theta_new) ** 2)
-            ok = chi2_new < chi2
-            theta = torch.where(ok, theta_new, theta)
-            lam = torch.clamp(torch.where(ok, lam * 0.3, lam * 5.0), 1e-8, 1e8)
-            chi2 = torch.where(ok, chi2_new, chi2)
+            theta, chi2, lam = _lm_step(resid, theta, chi2, lam, eye)
+    if replay:
+        # the first step's outputs are the graph's state: its own tensors,
+        # and the graph is never replayed after this call
+        theta, chi2, _ = _lm_replay(resid, (theta, chi2, lam), eye,
+                                    n_steps - 1)
     return theta, chi2
 
 

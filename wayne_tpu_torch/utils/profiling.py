@@ -21,11 +21,16 @@ The spans in the program, and what reads them:
 
 - ``reduce.extract``, ``reduce.fit``: ``run_reduce``'s two stages, the
   entry layer (``run_reduce --trace``);
-- ``fit.white`` (``reduction.fit_white_ramp``), ``lm.step`` (each step of
-  ``reduction._lm_minimize``), ``fit.detrend`` (``ramp_detrend``) and
-  ``fit.depths`` (``fit_depths``), the fits layer: the benchmark's
-  ``lm_step_ms``, ``device_idle.lm_step``, ``depth_fit_ms`` and, with the
-  counter, ``host_syncs_per_fit``.
+- ``fit.white`` (``reduction.fit_white_ramp``), ``fit.detrend``
+  (``ramp_detrend``) and ``fit.depths`` (``fit_depths``), the fits layer:
+  the benchmark's ``depth_fit_ms`` and, with the counter,
+  ``host_syncs_per_fit``;
+- the steps of ``reduction._lm_minimize``, also the fits layer:
+  ``lm.step`` for each step run eagerly (every step on the CPU and under
+  ``vmap``, the first on a card), ``lm.capture`` for the capture of the
+  CUDA graph the later steps replay, and ``lm.replay`` for each replay:
+  the benchmark's ``lm_step_ms`` and ``device_idle.lm_step`` (eager steps
+  only) and ``lm_graph_share`` (replays among all steps).
 """
 
 from __future__ import annotations
