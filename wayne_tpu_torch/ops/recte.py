@@ -19,6 +19,8 @@ from dataclasses import dataclass
 
 import torch
 
+from wayne_tpu_torch.utils.profiling import span
+
 
 @dataclass(frozen=True)
 class RecteParams:
@@ -107,7 +109,9 @@ def white_ramp(rate_e_s, exp_start_s: torch.Tensor, exptime_s: float,
                params: RecteParams = RecteParams(), f0_s=0.0,
                f0_f=0.0) -> torch.Tensor:
     """(N,) relative RECTE ramp 1 - deficit / (rate * exptime) of a light
-    curve at a representative illuminated-pixel rate (scalar or (N,))."""
+    curve at a representative illuminated-pixel rate (scalar or (N,)).
+    The trap loop is the span ``recte.ramp`` (``utils.profiling``); under
+    a transform or a CUDA graph's capture it records the host's pass."""
     p = params
     t = torch.as_tensor(exp_start_s, dtype=torch.float32)
     # one trailing axis of length 1: forward-mode autodiff gives a 0-dim
@@ -120,7 +124,8 @@ def white_ramp(rate_e_s, exp_start_s: torch.Tensor, exptime_s: float,
                            device=t.device).reshape(1) * p.n_trap_s
     e_f0 = torch.as_tensor(f0_f, dtype=torch.float32,
                            device=t.device).reshape(1) * p.n_trap_f
-    _, _, deficit = _trap_scan(p, exptime_s, e_s0, e_f0, f, gaps)
+    with span("recte.ramp"):
+        _, _, deficit = _trap_scan(p, exptime_s, e_s0, e_f0, f, gaps)
     return (1.0 - deficit / torch.clamp_min(f * exptime_s, 1e-20))[:, 0]
 
 

@@ -1774,49 +1774,52 @@ def fit_white_recte(white_lc: torch.Tensor, exp_mid_s: torch.Tensor,
     ``jacfwd`` through the trap loop over the exposures and the
     occultation integral. ``rate_e_s``: the aperture's mean illuminated
     rate (e-/s), calibrated by the fitted rate scale; ``exptime_s``: the
-    exposure time, exposure starts taken as mid - exptime / 2."""
-    lc = torch.as_tensor(white_lc).to(torch.float32)
-    dev = lc.device
-    t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
-    ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
-    starts = t - 0.5 * exptime_s
-    t_day = (t - t.mean()) / 86400.0
-    oot = out_of_transit_mask(t, orbit).to(torch.float32)
-    c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
-    z, in_front = projected_separation(t, orbit)
-    rate0 = torch.as_tensor(rate_e_s, dtype=torch.float32, device=dev)
+    exposure time, exposure starts taken as mid - exptime / 2. Span
+    ``fit.recte`` (``utils.profiling``), the steps' spans under it."""
+    with span("fit.recte"):
+        lc = torch.as_tensor(white_lc).to(torch.float32)
+        dev = lc.device
+        t = torch.as_tensor(exp_mid_s, device=dev).to(torch.float32)
+        ld = torch.as_tensor(ld, dtype=torch.float32, device=dev)
+        starts = t - 0.5 * exptime_s
+        t_day = (t - t.mean()) / 86400.0
+        oot = out_of_transit_mask(t, orbit).to(torch.float32)
+        c0 = torch.sum(lc * oot) / torch.clamp_min(torch.sum(oot), 1.0)
+        z, in_front = projected_separation(t, orbit)
+        rate0 = torch.as_tensor(rate_e_s, dtype=torch.float32, device=dev)
 
-    def model(theta):
-        c, rp, ra, u_s, u_f, log_rs = (theta[0], theta[1], theta[2],
-                                       theta[3], theta[4], theta[5])
-        rate = rate0 * torch.exp(_clip(log_rs, -3.0, 3.0))
-        ramp = white_ramp(rate, starts, exptime_s, f0_s=torch.sigmoid(u_s),
-                          f0_f=torch.sigmoid(u_f))
-        sys = (1.0 - ra * t_day) * ramp
-        f = transit_depth_curve(z, _clip(rp, 0.01, 0.5), ld, n_quad)
-        tr = 1.0 - (1.0 - f) * in_front
-        return c * sys * tr, sys
+        def model(theta):
+            c, rp, ra, u_s, u_f, log_rs = (theta[0], theta[1], theta[2],
+                                           theta[3], theta[4], theta[5])
+            rate = rate0 * torch.exp(_clip(log_rs, -3.0, 3.0))
+            ramp = white_ramp(rate, starts, exptime_s,
+                              f0_s=torch.sigmoid(u_s),
+                              f0_f=torch.sigmoid(u_f))
+            sys = (1.0 - ra * t_day) * ramp
+            f = transit_depth_curve(z, _clip(rp, 0.01, 0.5), ld, n_quad)
+            tr = 1.0 - (1.0 - f) * in_front
+            return c * sys * tr, sys
 
-    def resid(theta):
-        return model(theta)[0] - lc
+        def resid(theta):
+            return model(theta)[0] - lc
 
-    # the fills start mid-range (the sigmoid's gradient vanishes at the
-    # rails); the rate scale at the supplied estimate
-    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
-    theta0 = torch.stack([
-        c0, torch.as_tensor(rp_init, dtype=torch.float32,
-                            device=dev).reshape(()),
-        f32(0.0), f32(-1.5), f32(-1.5), f32(0.0)])
-    theta, chi2 = _lm_minimize(resid, theta0, n_iter)
-    _, sys = model(theta)
-    JTJ, _ = _lm_normal_eqs(resid, theta)
-    noise_var = chi2 / max(lc.shape[0] - 6, 1)
-    eye = torch.eye(6, dtype=torch.float32, device=dev)
-    cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
-    rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
-    return RecteWhiteFit(
-        rp=torch.clamp(theta[1], 0.01, 0.5), rp_sigma=rp_sigma,
-        c=theta[0], slope_per_day=theta[2],
-        f0_s=torch.sigmoid(theta[3]), f0_f=torch.sigmoid(theta[4]),
-        rate_scale=torch.exp(torch.clamp(theta[5], -3.0, 3.0)),
-        template=sys, chi2=chi2)
+        # the fills start mid-range (the sigmoid's gradient vanishes at the
+        # rails); the rate scale at the supplied estimate
+        f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        theta0 = torch.stack([
+            c0, torch.as_tensor(rp_init, dtype=torch.float32,
+                                device=dev).reshape(()),
+            f32(0.0), f32(-1.5), f32(-1.5), f32(0.0)])
+        theta, chi2 = _lm_minimize(resid, theta0, n_iter)
+        _, sys = model(theta)
+        JTJ, _ = _lm_normal_eqs(resid, theta)
+        noise_var = chi2 / max(lc.shape[0] - 6, 1)
+        eye = torch.eye(6, dtype=torch.float32, device=dev)
+        cov = torch.linalg.inv_ex(JTJ + 1e-9 * eye)[0]
+        rp_sigma = torch.sqrt(torch.clamp_min(cov[1, 1] * noise_var, 0.0))
+        return RecteWhiteFit(
+            rp=torch.clamp(theta[1], 0.01, 0.5), rp_sigma=rp_sigma,
+            c=theta[0], slope_per_day=theta[2],
+            f0_s=torch.sigmoid(theta[3]), f0_f=torch.sigmoid(theta[4]),
+            rate_scale=torch.exp(torch.clamp(theta[5], -3.0, 3.0)),
+            template=sys, chi2=chi2)

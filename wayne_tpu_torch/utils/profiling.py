@@ -30,7 +30,14 @@ The spans in the program, and what reads them:
   ``vmap``, the first on a card), ``lm.capture`` for the capture of the
   CUDA graph the later steps replay, and ``lm.replay`` for each replay:
   the benchmark's ``lm_step_ms`` and ``device_idle.lm_step`` (eager steps
-  only) and ``lm_graph_share`` (replays among all steps).
+  only) and ``lm_graph_share`` (replays among all steps);
+- ``fit.recte`` (``reduction.fit_white_recte``, the steps' spans under
+  it), the fits layer: the benchmark's ``recte_fit_ms`` and
+  ``device_idle.recte_fit``;
+- ``recte.ramp`` (the trap loop of ``ops.recte.white_ramp``, run inside
+  the LM's ``jacfwd``, so it records in the eager step and the capture,
+  never in a replay): the benchmark's ``recte_ramp_share``, those under an
+  ``lm.step`` or ``lm.capture`` over those spans' time.
 """
 
 from __future__ import annotations
