@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the readout kernels from ``wayne_tpu_torch/csrc`` (nvcc, sm_90a, one
-process per source, in parallel, linked into one library) and then:
+process per source, in parallel, linked into one library) and the RECTE
+kernel into a library of its own, and then:
 
 1. holds the whole-exposure kernel against its plain PyTorch version on
    the card at both shapes the main path launches it at: a chunk of the
@@ -140,9 +141,20 @@ process per source, in parallel, linked into one library) and then:
    the kill skips exactly the 10 chunks written, the resumed dataset
    equals a fresh one-shot run bit for bit, B1 = plain on the first
    sharded batch.
-   ``python3 chip_smoke.py --phases 9,10,11,12,13,14`` runs those phases alone
-   (phase 11 without 10 writes its visit and program itself) and prints no
-   result lines.
+15. the RECTE white-ramp kernel (R1, ``csrc/recte_ramp.cu``; see
+   ``phase_recte``) at the fit's shapes, on the fitted visit's 86 exposure
+   starts: the value of one row and ``jacfwd``'s six tangent rows, each
+   equal to its plain version (``ops.recte.white_ramp_plain``, the loop
+   and ``torch.func.jvp`` of it) bit for bit, the value to the loop's
+   (N,)-rate route too; one launch a call in ``white_ramp.launches``;
+   both launches and both plain versions timed, beside the bound of the
+   recurrence's dependent chain (``recte_chain_bound``). Phase 10 reads
+   ``white_ramp.launches`` on the main path: the host's R1 launches in
+   ``run_reduce --detrend recte``'s fit equal those of 2, 4 and 6 steps,
+   and the ramp fits launch none.
+   ``python3 chip_smoke.py --phases 9,10,11,12,13,14,15`` runs those phases
+   alone (phase 11 without 10 writes its visit and program itself) and
+   prints no result lines.
 
 The JSON line's launch counts add up every phase's.
 
@@ -155,7 +167,8 @@ rate against the operations over the rates of their pipes, see
 Prints the card's name and power limit first, a JSON line with the
 kernels' numbers (with ``exact_ms``, each kernel's exact-mode time, and
 its bound; B1's row also with ``twin_ms`` and ``tangent_ms``, its time on
-phase 11's model-twin chunk and that chunk's tangent pass) before the last
+phase 11's model-twin chunk and that chunk's tangent pass; R1's with its
+tangent launch's time, plain version and bound) before the last
 line, and last ``{"ok": true, "device":
 {...}}`` with the one card the run used. Any failed check exits non-zero. It
 needs a CUDA card and the repository around it, and fails without either.
@@ -2386,8 +2399,10 @@ def phase_reduce_cli(card: str, phase_curves: dict, root: str) -> int:
     from wayne_tpu_torch.config import load_yaml
     from wayne_tpu_torch.observation import Observation
     from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.ops import recte
     from wayne_tpu_torch.pytree import tree_map
     from wayne_tpu_torch.run_reduce import compare_reports
+    from wayne_tpu_torch.utils import profiling
 
     launches = 0
     print("phase 10: the reduction CLIs at full width")
@@ -2473,12 +2488,13 @@ def phase_reduce_cli(card: str, phase_curves: dict, root: str) -> int:
         real_fits = {k: getattr(red, k)
                      for k in ("fit_white_ramp", "fit_white_recte")}
 
-        def keep(name):    # the card's calls (not the replays'), timed
-            def call(*a, **kw):
+        def keep(name):    # the card's calls (not the replays'), timed,
+            def call(*a, **kw):     # with the R1 launches the host makes
                 if not a[0].is_cuda:
                     return real_fits[name](*a, **kw)
+                recte.white_ramp.launches = 0
                 out, wall = _synced(lambda: real_fits[name](*a, **kw))
-                fit_calls[name] = (a, kw, wall)
+                fit_calls[name] = (a, kw, wall, recte.white_ramp.launches)
                 return out
             return call
 
@@ -2510,32 +2526,56 @@ def phase_reduce_cli(card: str, phase_curves: dict, root: str) -> int:
                 setattr(red, name, fn)
 
     # the white fits: the card's time in the CLI runs, the launch calls of
-    # the same calls. Their loops have fixed counts, so the calls are
-    # a + b n_iter exactly: traces at 2, 4 and 6 steps give a and b (the
-    # three must lie on one line), in a fraction of a full trace's time.
-    a, kw, _ = fit_calls["fit_white_ramp"]
+    # the same calls. On a card the first LM step runs eagerly and the rest
+    # replay a CUDA graph of one step, so the host's launch calls, R1's
+    # among them, are the same at any step count: traces at 2, 4 and 6
+    # steps show them so, beside the program's spans (each LM call on the
+    # card: 1 eager step, 1 capture, n - 1 replays; the geometry fit's
+    # vmapped seed fits run their 25 steps eagerly), in a fraction of a
+    # full trace's time.
+    a, kw, _, _ = fit_calls["fit_white_ramp"]
     plain = dict(kw, fit_geometry=False, clip_sigma=None)
+    recte.white_ramp.launches = 0
     _, t_plain = _synced(lambda: red.fit_white_ramp(*a, **plain))
-    fit_calls["fit_white_ramp plain"] = (a, plain, t_plain)
+    fit_calls["fit_white_ramp plain"] = (a, plain, t_plain,
+                                         recte.white_ramp.launches)
     for label, name, n_iter in (
             ("fit_white_ramp", "fit_white_ramp plain", 60),
             ("fit_white_ramp (fit_geometry, clip_sigma 5)",
              "fit_white_ramp", 60),
             ("fit_white_recte", "fit_white_recte", 80)):
-        fa, fkw, wall = fit_calls[name]
+        fa, fkw, wall, r1 = fit_calls[name]
         fit = red.fit_white_recte if "recte" in name else red.fit_white_ramp
         t0 = time.perf_counter()
-        counts = [kernels_in(lambda: fit(*fa, **dict(fkw, n_iter=k)),
-                             warmup=False) for k in (2, 4, 6)]
-        per_step = (counts[1] - counts[0]) // 2
-        calls = counts[0] + per_step * (n_iter - 2)
-        check(counts[2] - counts[1] == counts[1] - counts[0] > 0,
-              f"{label}: launch calls at 2, 4 and 6 steps {counts} on one "
-              f"line ({per_step} a step)")
+        counts, steps, r1_at = [], [], []
+        for k in (2, 4, 6):
+            recte.white_ramp.launches = 0
+            with profiling.tracing() as spans:
+                counts.append(kernels_in(
+                    lambda: fit(*fa, **dict(fkw, n_iter=k)), warmup=False))
+            names = [sp.name for sp in spans.spans]
+            steps.append([names.count(n)
+                          for n in ("lm.step", "lm.capture", "lm.replay")])
+            r1_at.append(recte.white_ramp.launches)
+        calls, (eager, graphs, _) = counts[0], steps[0]
+        check(counts == [calls] * 3 and calls > 0 and graphs > 0
+              and steps == [[eager, graphs, graphs * (k - 1)]
+                            for k in (2, 4, 6)],
+              f"{label}: launch calls at 2, 4 and 6 steps {counts}, the "
+              f"same at any step count; the LM's spans (lm.step, "
+              f"lm.capture, lm.replay) {steps}: {graphs} LM call(s) on "
+              f"the card, each replaying its step n - 1 times")
+        check(r1_at == [r1] * 3 and (r1 > 0) == ("recte" in name),
+              f"{label}: the host issued {r1} R1 launches "
+              f"(white_ramp.launches) at {n_iter} steps and {r1_at} at 2, "
+              f"4 and 6")
+        if "recte" in name:
+            R1_LAUNCHES["phase 10"] = r1
         print(f"timing [{card}]: {label} on the visit's white curve "
               f"({n_exp} exposures, {n_iter} steps): {wall * 1e3:.1f} ms, "
-              f"{calls} kernel launch calls ({wall * 1e6 / calls:.1f} us "
-              f"each; traced in {time.perf_counter() - t0:.1f} s)")
+              f"{calls} kernel launch calls and {graphs * (n_iter - 1)} "
+              f"replays of a step's graph (traced in "
+              f"{time.perf_counter() - t0:.1f} s)")
     del fit_calls
 
     # (c) the eclipse visit through run_reduce, the phase curve's fit
@@ -3517,8 +3557,156 @@ def phase_tools(card: str) -> int:
     return launches_a + launches_b + launches_c
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the RECTE white-ramp kernel (R1)
+# ---------------------------------------------------------------------------
+
+# the fullsys-rectefit cell's visit: its 86 exposure mid-times and exposure
+# time (.midtimes.json) and its illuminated rate (.json)
+RECTE_VISIT = os.path.join(HERE, "benchmark", "configs",
+                           "wasp43b-g141-fullsys")
+# cycles before a dependent fp32 add or multiply on sm_90 sees its input
+# (as on every card since Volta); R1 builds with --fmad=false, so no FMA
+FP32_LATENCY_CYCLES = 4
+R1_LAUNCHES = {}        # R1's launches (white_ramp.launches) by phase
+
+
+def recte_chain_bound(n_exp: int, rows: int, tangent: bool) -> dict:
+    """R1's least time (ms) on ``rows`` light curves of ``n_exp``
+    exposures: the latency of the recurrence's dependent chain, ``n_exp``
+    steps of 4 dependent fp32 operations (the gap's decay, the distance to
+    the level, its product with the exposure's decay, the sum), 5 on the
+    tangent's chain (``csrc/recte_ramp.cu``), at FP32_LATENCY_CYCLES each,
+    against the bytes (the starts, the rates, fills and tangents read
+    once, the ramp and its tangent written once) over the memory rate. The
+    rows run side by side, a warp each (up to one per SM)."""
+    chain_ms = (n_exp * (5 if tangent else 4) * FP32_LATENCY_CYCLES
+                / H100_CLOCK_HZ * 1e3)
+    n_bytes = 4 * rows * (n_exp * (3 if tangent else 2)
+                          + (6 if tangent else 3))
+    bytes_ms = n_bytes / H100_BYTES_S * 1e3
+    return dict(chain_ms=chain_ms, bytes_ms=bytes_ms,
+                bound_ms=max(chain_ms, bytes_ms),
+                bound_by="latency" if chain_ms >= bytes_ms else "bytes")
+
+
+def phase_recte(card: str) -> dict:
+    """R1 at the shapes of ``fit_white_recte``'s launches on the
+    fullsys-rectefit cell's visit (its 86 exposure starts and illuminated
+    rate): the value of one row, (1, 86), and the tangents of ``jacfwd``'s
+    six directions of the fit's parameters, (6, 86), at three points of
+    them. Each is ``white_ramp_plain`` on the same card tensors bit for
+    bit, the value also the loop's (N,)-rate route of ``white_ramp``;
+    ``white_ramp.launches`` counts one launch a call. Then both launches
+    timed (``kernel_times``), their plain versions host-paced, and an eager
+    ``white_ramp`` and its ``jacfwd`` of the fit's parametrisation, beside
+    ``recte_chain_bound``. Returns R1's numbers for the JSON line."""
+    import torch
+
+    from wayne_tpu_torch.ops import recte
+
+    print("phase 15: the RECTE white-ramp kernel (R1)")
+    with open(RECTE_VISIT + ".midtimes.json") as fh:
+        frozen = json.load(fh)
+    with open(RECTE_VISIT + ".json") as fh:
+        rate_e_s = float(json.load(fh)["white_rate_e_s"])
+    exptime = float(frozen["exptime_s"])
+    dev = torch.device("cuda")
+    # fit_white_recte's starts, rate and fills from its parameters theta =
+    # (c, rp, slope, logit f0_s, logit f0_f, log rate scale)
+    starts = (torch.tensor(frozen["exp_mid_s"], dtype=torch.float32,
+                           device=dev) - 0.5 * exptime)
+    n = starts.numel()
+    rate0 = torch.tensor(rate_e_s, dtype=torch.float32, device=dev)
+    P = recte.RecteParams()
+
+    def inputs(th):
+        return torch.stack([rate0 * torch.exp(th[5]), torch.sigmoid(th[3]),
+                            torch.sigmoid(th[4])])
+
+    def launches(th):
+        """The value's rows (1, n), jacfwd's tangent rows (6, n) and their
+        tangents of the rate and the fills, as the fit launches them."""
+        x, jac = inputs(th), torch.func.jacfwd(inputs)(th)
+        value = (starts[None].contiguous(), *(v.reshape(1) for v in x))
+        tangent = (starts.expand(6, n).contiguous(),
+                   *(v.expand(6).contiguous() for v in x))
+        return value, tangent, tuple(j.contiguous() for j in jac)
+
+    def model(th):
+        rate, f0_s, f0_f = inputs(th)
+        return recte.white_ramp(rate, starts, exptime, P, f0_s=f0_s,
+                                f0_f=f0_f)
+
+    thetas = [torch.tensor(th, dtype=torch.float32, device=dev) for th in (
+        (1.0, 0.16, 0.0, -1.5, -1.5, 0.0),      # the fit's start
+        (0.99, 0.155, 0.003, 0.4, -3.0, 0.3),
+        (1.01, 0.165, 0.001, -2.8, 0.4, -0.25))]
+    recte.white_ramp.launches = 0
+    errs = []
+    for th in thetas:
+        value, tangent, tangents = launches(th)
+        got = recte._white_ramp_value(*value, exptime, P)
+        want = recte.white_ramp_plain(*value, exptime, P)
+        loop = recte.white_ramp(value[1].expand(n), starts, exptime, P,
+                                f0_s=value[2], f0_f=value[3])
+        got_t, got_d = recte._white_ramp_value(*tangent, exptime, P,
+                                               tangents)
+        want_t, want_d = recte.white_ramp_plain(*tangent, exptime, P,
+                                                tangents)
+        torch.cuda.synchronize()
+        errs += [float((got - want).abs().max()),
+                 float((got_t - want_t).abs().max()),
+                 float((got_d - want_d).abs().max())]
+        moved = (got_d.abs().amax(dim=1) > 0).tolist()
+        check(torch.equal(got, want) and torch.equal(got[0], loop)
+              and torch.equal(got_t, want_t) and torch.equal(got_d, want_d)
+              and moved == [False] * 3 + [True] * 3,
+              f"R1 at theta {[round(v, 3) for v in th.tolist()]} (rate "
+              f"{float(value[1]):.3f} e-/s, fills {float(value[2]):.4f}, "
+              f"{float(value[3]):.4f}): the value (1, {n}) = the plain "
+              f"version and the loop's (N,)-rate route bit for bit (ramp "
+              f"{float(got.min()):.6f}..{float(got.max()):.6f}); the "
+              f"tangents (6, {n}) = torch.func.jvp of the loop bit for bit, "
+              f"zero in c, rp and the slope, largest |d ramp| "
+              f"{float(got_d.abs().max()):.4g}")
+    check(recte.white_ramp.launches == 2 * len(thetas),
+          f"white_ramp.launches counted {recte.white_ramp.launches} R1 "
+          f"launches for {2 * len(thetas)} calls")
+    R1_LAUNCHES["phase 15"] = recte.white_ramp.launches
+
+    value, tangent, tangents = launches(thetas[0])
+    tv = kernel_times(lambda: recte._white_ramp_value(*value, exptime, P),
+                      reps=200)
+    tt = kernel_times(lambda: recte._white_ramp_value(*tangent, exptime, P,
+                                                      tangents), reps=200)
+    plain_v = cuda_ms(lambda: recte.white_ramp_plain(*value, exptime, P),
+                      reps=5, warmup=1)
+    plain_t = cuda_ms(lambda: recte.white_ramp_plain(*tangent, exptime, P,
+                                                     tangents),
+                      reps=3, warmup=1)
+    eager = cuda_ms(lambda: model(thetas[0]), reps=50)
+    jac = cuda_ms(lambda: torch.func.jacfwd(model)(thetas[0]), reps=20)
+    bv, bt = recte_chain_bound(n, 1, False), recte_chain_bound(n, 6, True)
+    for label, t, plain_ms, b in (("value (1, %d)" % n, tv, plain_v, bv),
+                                  ("tangents (6, %d)" % n, tt, plain_t, bt)):
+        print(f"timing [{card}]: R1 {label}: {times_line(t)}; plain "
+              f"version {plain_ms:.3f} ms host-paced; bound "
+              f"{b['bound_ms'] * 1e3:.3f} us by {b['bound_by']} (chain "
+              f"{b['chain_ms'] * 1e3:.3f} us, bytes {b['bytes_ms'] * 1e3:.4f}"
+              f" us), {b['bound_ms'] / t['ms']:.1%} of it L2-cold")
+    print(f"timing [{card}]: white_ramp at a scalar rate {eager:.3f} ms a "
+          f"call, its jacfwd in the fit's six parameters {jac:.3f} ms "
+          f"(host-paced)")
+    return dict(ms=tv["ms"], warm_ms=tv["warm_ms"], plain_ms=plain_v,
+                bound_ms=bv["bound_ms"], bound_by=bv["bound_by"],
+                tangent_ms=tt["ms"], tangent_warm_ms=tt["warm_ms"],
+                tangent_plain_ms=plain_t, tangent_bound_ms=bt["bound_ms"],
+                max_abs_err=max(errs))
+
+
 def partial_run(only: set, card: str) -> int:
-    """Phases 9 to 14 alone (``--phases``); phase 10 then simulates
+    """Phases 9 to 15 alone (``--phases``); phase 10 then simulates
     the phase-curve visit itself, and phase 11 without phase 10 writes the
     uncut headline visit (``run_visit``) and the three-visit program
     (``run_program``) itself. Prints no result lines."""
@@ -3552,6 +3740,8 @@ def partial_run(only: set, card: str) -> int:
         phase_validation(card)
     if 14 in only:
         phase_tools(card)
+    if 15 in only:
+        phase_recte(card)
     check("jax" not in sys.modules, "jax was not imported")
     print(f"partial run of phases {sorted(only)}: no result lines")
     return 0
@@ -3580,11 +3770,13 @@ def main(argv: list[str] | None = None) -> int:
           f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     from wayne_tpu_torch.ops import readout as ro
+    from wayne_tpu_torch.ops import recte
 
-    t0 = time.time()
-    ro.build(verbose=True)
-    print(f"built {os.path.relpath(ro.library_path(), HERE)} in "
-          f"{time.time() - t0:.1f} s")
+    for lib in (ro, recte):
+        t0 = time.time()
+        lib.build(verbose=True)
+        print(f"built {os.path.relpath(lib.library_path(), HERE)} in "
+              f"{time.time() - t0:.1f} s")
     if only is not None:
         return partial_run(only, card)
     cfg, obs = headline_observation()
@@ -3623,6 +3815,7 @@ def main(argv: list[str] | None = None) -> int:
     launches += phase_mesh(card)
     launches += phase_validation(card)
     launches += phase_tools(card)
+    r1 = phase_recte(card)
     check("jax" not in sys.modules and not any(
         m == "wayne_tpu" or m.startswith("wayne_tpu.") for m in sys.modules),
           "neither jax nor wayne_tpu was imported")
@@ -3647,7 +3840,12 @@ def main(argv: list[str] | None = None) -> int:
         "exact_ms": exact[name][0], "exact_bound_ms": exact[name][1],
         **({"twin_ms": twin["ms"], "tangent_ms": twin["tangent_ms"]}
            if name == "exposure_readout" else {})}
-        for name, src, line, n, k in rows]}))
+        for name, src, line, n, k in rows] + [{
+        "name": "recte_white_ramp", "route": "cuda",
+        "source": "wayne_tpu_torch/csrc/recte_ramp.cu",
+        "replaces": "none (the lax.scan of wayne_tpu/ops/recte.py)",
+        "launches": sum(R1_LAUNCHES.values()), "library_ms": None,
+        "exact_ms": None, "exact_bound_ms": None, **r1}]}))
     # the run uses one card, cuda:0, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from wayne_tpu.ops.pallas_readout import fused_read_step, fused_read_step_banded
 from wayne_tpu_torch.ops import readout as ro
+from wayne_tpu_torch.ops import recte
 from wayne_tpu_torch.ops.readout import (
     add_hits, exposure_readout_plain, read_step, read_step_banded,
     read_step_banded_plain, read_step_plain, sample_band,
@@ -243,16 +244,26 @@ def test_add_hits_adds_in_list_order():
 
 
 def test_library_name_hashes_every_compiled_file(tmp_path, monkeypatch):
-    """The built library's name hashes every file nvcc reads, the shared
-    header included, so an edit never loads a stale build."""
-    assert sorted(os.listdir(ro._CSRC)) == sorted(ro.SOURCES + ro.HEADERS)
+    """Each built library's name hashes every file nvcc reads for it, the
+    shared header included, so an edit never loads a stale build; the
+    readout kernels' library and the RECTE kernel's are built from
+    separate files, so an edit to one never rebuilds the other."""
+    assert sorted(os.listdir(ro._CSRC)) == sorted(
+        ro.SOURCES + ro.HEADERS + recte.SOURCES)
     csrc = tmp_path / "csrc"
     shutil.copytree(ro._CSRC, csrc)
     monkeypatch.setattr(ro, "_CSRC", str(csrc))
     first = ro.library_path()
-    for name in ro.SOURCES + ro.HEADERS:
+    first_recte = recte.library_path()
+    assert os.path.basename(first).startswith("libreadout-")
+    assert os.path.basename(first_recte).startswith("librecte-")
+    for name in ro.SOURCES + ro.HEADERS + recte.SOURCES:
         text = (csrc / name).read_text()
         (csrc / name).write_text(text + "\n// edited\n")
-        assert ro.library_path() != first, name
+        assert (ro.library_path() != first) == (name not in recte.SOURCES), \
+            name
+        assert (recte.library_path() != first_recte) == (
+            name in recte.SOURCES), name
         (csrc / name).write_text(text)
     assert ro.library_path() == first
+    assert recte.library_path() == first_recte

@@ -359,35 +359,41 @@ _count_lock = threading.Lock()
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the readout kernels are built "
+        raise RuntimeError("nvcc not found: the port's kernels are built "
                            "from wayne_tpu_torch/csrc at first use on a CUDA "
                            "machine")
     return path
 
 
-def library_path(flags: list[str] = NVCC_FLAGS) -> str:
-    """Where the kernel library for the current sources, headers and
-    ``flags`` is (or will be)."""
+def library_path(flags: list[str] = NVCC_FLAGS, *, stem: str = "readout",
+                 sources: tuple = SOURCES, headers: tuple = HEADERS) -> str:
+    """Where the kernel library ``lib<stem>`` of ``sources`` and
+    ``headers`` (csrc/; the readout kernels' by default), built with
+    ``flags``, is (or will be): the name hashes all of them."""
     digest = hashlib.sha256(" ".join(flags).encode())
-    for name in SOURCES + HEADERS:
+    for name in sources + headers:
         with open(os.path.join(_CSRC, name), "rb") as fh:
             digest.update(name.encode() + b"\0" + fh.read())
-    return os.path.join(_BUILD_DIR, f"libreadout-{digest.hexdigest()[:16]}.so")
+    return os.path.join(_BUILD_DIR,
+                        f"lib{stem}-{digest.hexdigest()[:16]}.so")
 
 
-def build(verbose: bool = False, flags: list[str] = NVCC_FLAGS) -> str:
-    """Compile csrc/*.cu with ``flags`` into build/ unless those sources
-    are already built so; returns the library path. The sources compile in
-    parallel, one nvcc each, and link into one shared library. Safe against
+def build(verbose: bool = False, flags: list[str] = NVCC_FLAGS, *,
+          stem: str = "readout", sources: tuple = SOURCES,
+          headers: tuple = HEADERS) -> str:
+    """Compile ``sources`` (csrc/; the readout kernels' by default) with
+    ``flags`` into build/ unless they are already built so; returns the
+    library path (:func:`library_path`). The sources compile in parallel,
+    one nvcc each, and link into one shared library. Safe against
     concurrent builders (build in a temporary directory, then rename)."""
-    out = library_path(flags)
+    out = library_path(flags, stem=stem, sources=sources, headers=headers)
     if os.path.exists(out):
         return out
     os.makedirs(_BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
         objs, procs = [], []
-        for name in SOURCES:
+        for name in sources:
             obj = os.path.join(tmp, name + ".o")
             cmd = [nvcc, *flags, "-c", "-o", obj, os.path.join(_CSRC, name)]
             if verbose:

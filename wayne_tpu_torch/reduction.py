@@ -1771,7 +1771,8 @@ def fit_white_recte(white_lc: torch.Tensor, exp_mid_s: torch.Tensor,
     (Zhou et al. 2017; :func:`ops.recte.white_ramp`) at an effective
     illumination rate. theta = (c, rp, ra per day, logit f0_s, logit f0_f,
     log rate_scale); Levenberg-Marquardt (:func:`_lm_minimize`) with
-    ``jacfwd`` through the trap loop over the exposures and the
+    ``jacfwd`` through the trap recurrence over the exposures (on a card
+    one kernel launch for its value and one for its six tangents) and the
     occultation integral. ``rate_e_s``: the aperture's mean illuminated
     rate (e-/s), calibrated by the fitted rate scale; ``exptime_s``: the
     exposure time, exposure starts taken as mid - exptime / 2. Span

@@ -34,10 +34,12 @@ The spans in the program, and what reads them:
 - ``fit.recte`` (``reduction.fit_white_recte``, the steps' spans under
   it), the fits layer: the benchmark's ``recte_fit_ms`` and
   ``device_idle.recte_fit``;
-- ``recte.ramp`` (the trap loop of ``ops.recte.white_ramp``, run inside
-  the LM's ``jacfwd``, so it records in the eager step and the capture,
-  never in a replay): the benchmark's ``recte_ramp_share``, those under an
-  ``lm.step`` or ``lm.capture`` over those spans' time.
+- ``recte.ramp`` (the trap recurrence of ``ops.recte.white_ramp``: the
+  RECTE kernel's value and tangent launches, or the loop for a rate per
+  exposure; run inside the LM's ``jacfwd``, so it records in the eager
+  step and the capture, never in a replay): the benchmark's
+  ``recte_ramp_share``, those under an ``lm.step`` or ``lm.capture`` over
+  those spans' time.
 """
 
 from __future__ import annotations
